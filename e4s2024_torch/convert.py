@@ -8,8 +8,9 @@ The inverse of the layout rules of the JAX package's checkpoint converter
   ModulatedConv (kh, kw, I, O) -> (1, O, I, kh, kw)
   ToRGB bias (1, 1, 1, 3)     -> (1, 3, 1, 1)
   const input (1, 4, 4, C)    -> (1, C, 4, 4)
+  LayerNorm scale, bias       -> weight, bias
 
-Both functions take nested dicts of numpy (or array-like) leaves and return
+The functions take nested dicts of numpy (or array-like) leaves and return
 flat {reference name: torch.Tensor} dicts that the port's modules load with
 `load_state_dict(strict=True)`.
 """
@@ -157,4 +158,45 @@ def bisenet_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     for head in ("conv_out", "conv_out16", "conv_out32"):
         _convbnrelu(params[head]["conv"], f"{head}.conv", out)
         _conv(params[head]["conv_out"], f"{head}.conv_out", out)
+    return out
+
+
+def _layernorm(p: Mapping, name: str, out: dict) -> None:
+    out[f"{name}.weight"] = _t(p["scale"])
+    out[f"{name}.bias"] = _t(p["bias"])
+
+
+def swin_block_state_dict_from_jax(params: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
+    """SwinBlock params -> port SwinBlock state dict (`norm1`, `attn.*`,
+    `norm2`, `mlp.fc1`, `mlp.fc2`)."""
+    out: dict[str, torch.Tensor] = {}
+    _layernorm(params["norm1"], f"{prefix}norm1", out)
+    _layernorm(params["norm2"], f"{prefix}norm2", out)
+    out[f"{prefix}attn.relative_position_bias_table"] = _t(params["attn"]["rel_bias_table"])
+    _linear(params["attn"]["qkv"], f"{prefix}attn.qkv", out)
+    _linear(params["attn"]["proj"], f"{prefix}attn.proj", out)
+    _linear(params["fc1"], f"{prefix}mlp.fc1", out)
+    _linear(params["fc2"], f"{prefix}mlp.fc2", out)
+    return out
+
+
+def swinir_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """SwinIR params -> port SwinIR state dict in the reference's names
+    (`conv_first`, `patch_embed.norm`, `layers.{i}.residual_group.blocks.{j}.*`,
+    `layers.{i}.conv`, `norm`, `conv_after_body`, `conv_before_upsample.0`,
+    `conv_up1`, `conv_up2`, `conv_hr`, `conv_last`)."""
+    out: dict[str, torch.Tensor] = {}
+    _conv(params["conv_first"], "conv_first", out)
+    _layernorm(params["patch_norm"], "patch_embed.norm", out)
+    for i in range(_count(params, "layers_")):
+        lp, name = params[f"layers_{i}"], f"layers.{i}"
+        for j in range(_count(lp, "blocks_")):
+            out.update(swin_block_state_dict_from_jax(
+                lp[f"blocks_{j}"], f"{name}.residual_group.blocks.{j}."))
+        _conv(lp["conv"], f"{name}.conv", out)
+    _layernorm(params["norm"], "norm", out)
+    _conv(params["conv_after_body"], "conv_after_body", out)
+    _conv(params["conv_before_upsample"], "conv_before_upsample.0", out)
+    for name in ("conv_up1", "conv_up2", "conv_hr", "conv_last"):
+        _conv(params[name], name, out)
     return out

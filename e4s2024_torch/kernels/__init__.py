@@ -2,7 +2,9 @@
 
 The kernels' wrappers live beside their plain PyTorch versions in `ops/`
 (`fused_act.fused_leaky_relu`, `upfirdn.upfirdn2d`,
-`modulate.regional_scale`). A wrapper takes the plain version for a tensor on
+`modulate.regional_scale`, `window_attention.swin_attention_nhwc`,
+`window_attention.fused_window_attention`, `swin_block.fused_swin_block`).
+A wrapper takes the plain version for a tensor on
 the CPU and launches its kernel for a tensor on a CUDA device; it never falls
 back from one to the other. Each wrapper carries an integer `launches`
 counter that grows by one per kernel launch, so a run can show that it went

@@ -39,6 +39,16 @@ SIGNATURES = {
                       ctypes.POINTER(ctypes.c_float), _I, _I, _I, _P),
     # x, seg, scales, out, dtype, batch, channels, regions, hw, device, stream
     "e4s_regional_scale": (_P, _P, _P, _P, _I, _LL, _I, _I, _LL, _I, _P),
+    # qkv, bias, labels, out, dtype, batch, height, width, channels, heads,
+    # window, scale, device, stream
+    "e4s_swin_attention_nhwc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, bias, labels, out, dtype, windows, heads, n, head_dim, scale,
+    # device, stream
+    "e4s_window_attention": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _F, _I, _P),
+    # x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, bias, labels, ln2_s,
+    # ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, out, dtype, batch, height, width,
+    # channels, heads, hidden, window, scale, eps, device, stream
+    "e4s_swin_block": (_P,) * 16 + (_I,) * 8 + (_F, _F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,12 @@
 """Where the time of one aligned swap goes, on a CUDA card.
 
     python -m e4s2024_torch.profile_swap [--mode exact|fast] [--dtype float32|bfloat16]
+                                         [--enhance]
 
 Builds FaceSwapper at the default configuration (1024^2 output, full
-encoder and parser) with seeded random weights, warms it up, then:
+encoder and parser) with seeded random weights (with --enhance, inside
+FullFaceSwapPipeline with a full-width SwinIR-M "swinir" enhancer, the
+enhanced swap), warms it up, then:
 
 1. runs the swap's stages one by one, each between two synchronisations, and
    reports per stage the host time and the device time (CUDA events);
@@ -28,6 +31,8 @@ from torch.autograd import DeviceType
 from e4s2024_torch.data.labels import FFHQ_TO_12, map_labels
 from e4s2024_torch.models.bisenet import BiSeNet
 from e4s2024_torch.models.rgi import RGINet
+from e4s2024_torch.models.swinir import SwinIR, SwinIREnhancer, SwinIRUpscaler
+from e4s2024_torch.pipelines.full_swap import FullFaceSwapPipeline, FullSwapConfig, SwapComponents
 from e4s2024_torch.pipelines.mask_merge import swap_comp_style_vector, swap_head_mask
 from e4s2024_torch.pipelines.swap import FaceSwapper, SwapConfig
 
@@ -78,6 +83,8 @@ def main() -> None:
     ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--trace", default="", help="write a chrome trace here")
+    ap.add_argument("--enhance", action="store_true",
+                    help="the SwinIR-enhanced swap (FullFaceSwapPipeline)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_swap: no CUDA device is available")
@@ -89,13 +96,26 @@ def main() -> None:
                      SwapConfig(regional_mode=args.mode, compute_dtype=args.dtype))
     rng = np.random.default_rng(0)
     driven, target = (rng.random((2, 1, 1024, 1024, 3)) * 255).astype(np.uint8)
+    swap = lambda: sw.swap_aligned(driven, target)  # noqa: E731
+    enhance = None
+    if args.enhance:
+        enhance = SwinIREnhancer(SwinIRUpscaler(SwinIR().state_dict(),
+                                                compute_dtype=args.dtype)).enhance_aligned
+        pipe = FullFaceSwapPipeline(sw, SwapComponents(enhancers={"swinir": enhance}),
+                                    FullSwapConfig(enhancement_mode="swinir"))
+        swap = lambda: pipe(driven[0], target[0])  # noqa: E731
     for _ in range(2):
-        sw.swap_aligned(driven, target)
+        swap()
     torch.cuda.synchronize()
 
     stages: dict = {}
     for _ in range(args.requests):
-        staged_swap(sw, driven, target, stages)
+        d = driven
+        if enhance is not None:
+            with torch.inference_mode():
+                d = _timed(stages, "enhance (SwinIR-M x4, resize back)",
+                           lambda: enhance(torch.from_numpy(driven).cuda().float()))
+        staged_swap(sw, d, target, stages)
     for name, rec in stages.items():
         print(json.dumps({"stage": name, "host_ms": rec["host_ms"] / args.requests,
                           "device_ms": rec["device_ms"] / args.requests}))
@@ -104,7 +124,7 @@ def main() -> None:
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.requests):
-            sw.swap_aligned(driven, target)
+            swap()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.requests
     if args.trace:
@@ -118,7 +138,8 @@ def main() -> None:
     for e in events[:15]:
         print(json.dumps({"kernel": e.key[:90], "calls_per_swap": e.count / args.requests,
                           "device_ms_per_swap": e.self_device_time_total / 1e3 / args.requests}))
-    print(json.dumps({"mode": args.mode, "dtype": args.dtype, "card": torch.cuda.get_device_name(0),
+    print(json.dumps({"mode": args.mode, "dtype": args.dtype, "enhance": args.enhance,
+                      "card": torch.cuda.get_device_name(0),
                       "wall_ms_per_swap_traced": wall_ms, "device_busy_ms_per_swap": device_ms,
                       "device_busy_share": device_ms / wall_ms}))
 
