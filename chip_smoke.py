@@ -8,8 +8,10 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 Phases, each of which must pass or the script exits non-zero:
 
 1. build: compile the six CUDA kernels from e4s2024_torch/kernels/csrc/
-   for sm_90a (one nvcc per source, in parallel) and print the card's name
-   and power limit as nvidia-smi reports them;
+   for sm_90a (one nvcc per source, in parallel), count the tensor-core
+   instructions of each kernel in the built library (the bfloat16 instances
+   of the Swin block and of the window attention must hold some), and print
+   the card's name and power limit as nvidia-smi reports them;
 2. kernels: at the shapes the 1024^2 generator and the SwinIR-M enhancer
    give them, run each kernel and its plain PyTorch version on the same
    inputs, check the difference against a stated bound, and time kernel,
@@ -24,13 +26,16 @@ Phases, each of which must pass or the script exits non-zero:
 4. enhance: FullFaceSwapPipeline over that FaceSwapper with a full-width
    SwinIR-M "swinir" enhancer (seeded random weights), B=1 at 1024^2: check
    the output and the launch counts of two requests through the default
-   fused route (K5), hold the whole call and the upscaler's unclipped output
-   against the plain versions, run the upscaler once through K4 and once
-   through K6 against their plain versions, then time bfloat16.
+   fused route (K5), which must run no torch.roll, hold the whole call and
+   the upscaler's unclipped output against the plain versions, run the
+   upscaler once through K4 and once through K6 against their plain
+   versions, then time bfloat16.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Float32 convolutions and matrix
-products run in full float32 (TF32 off) throughout.
+products of PyTorch run in full float32 (TF32 off) throughout; the float32
+products inside K4-K6 are error-compensated 3xTF32, as accurate as float32
+to within 2e-6.
 """
 
 from __future__ import annotations
@@ -47,6 +52,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 dense tensor-core rate
+# float32 products of K4-K6 run as three tf32 tensor-core products each
+# (495 TFLOP/s dense), so a third of that rate is the most float32 work they
+# can do and no share of this bound can read over 1
+TF32X3_OPS_PER_S = 495e12 / 3
 SEED = 0
 REQUESTS = 3
 ENHANCE_REQUESTS = 2
@@ -63,6 +72,22 @@ PER_CALL = {
 SWIN_BLOCKS = 36
 ROUTE_KERNEL = {"fused": "fused_swin_block", "nhwc": "swin_attention_nhwc",
                 "windowed": "fused_window_attention"}
+
+# The same cases' times with the float32-FMA kernels these replaced
+# (chip_smoke.py of that version, NVIDIA H100 80GB HBM3, 700.00 W), by
+# (kernel, dtype, shift); K5's shift was the caller's two rolls then.
+PREVIOUS_MS = {
+    ("swin_attention_nhwc", "float32", 0): 4.8152, ("swin_attention_nhwc", "float32", 4): 4.9979,
+    ("swin_attention_nhwc", "bfloat16", 0): 4.8537, ("swin_attention_nhwc", "bfloat16", 4): 5.0157,
+    ("fused_window_attention", "float32", 0): 4.4153,
+    ("fused_window_attention", "float32", 4): 4.5360,
+    ("fused_window_attention", "bfloat16", 0): 4.3664,
+    ("fused_window_attention", "bfloat16", 4): 4.5391,
+    ("fused_swin_block", "float32", 0): 42.8471, ("fused_swin_block", "float32", 4): 43.0100,
+    ("fused_swin_block", "bfloat16", 0): 44.3271, ("fused_swin_block", "bfloat16", 4): 44.5784,
+}
+# kernels whose bfloat16 instances must hold tensor-core instructions
+TENSOR_CORE_KERNELS = ("swin_block_kernel", "window_attention_kernel")
 
 KERNEL_INFO = {
     "fused_leaky_relu": ("e4s2024_torch/kernels/csrc/fused_act.cu",
@@ -108,6 +133,7 @@ def phase_build(torch):
     for line in build.build_info.get("report", "").splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
+    _tensor_core_counts(build)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
@@ -116,10 +142,38 @@ def phase_build(torch):
     return card
 
 
+def _tensor_core_counts(build):
+    """Log, per kernel of the built library, how many tensor-core
+    instructions (HMMA: mma.sync; HGMMA: wgmma) its SASS holds, and fail if
+    a bfloat16 instance of the Swin block or the window attention has none."""
+    sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(build.library_path())],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    for fn, count in sorted(counts.items()):
+        log(f"[build] tensor-core instructions {count:5d}  {fn[:110]}")
+    for kernel in TENSOR_CORE_KERNELS:
+        bf16 = {fn: c for fn, c in counts.items() if kernel in fn and "bfloat16" in fn}
+        if not bf16 or min(bf16.values()) == 0:
+            raise AssertionError(f"{kernel}: bfloat16 instances without tensor-core "
+                                 f"instructions: {bf16}")
+
+
 def _case_record(torch, name, label, kernel_fn, plain_fn, ref_fn, library_fn,
-                 bytes_moved, ops, rtol, atol, ops_rate=F32_OPS_PER_S, iters=20):
+                 bytes_moved, ops, rtol, atol, ops_rate=F32_OPS_PER_S, iters=20,
+                 previous_ms=None):
     """`ops_rate` is the card's peak for the case's work: float32 outside the
-    tensor cores, or the bf16 tensor-core rate for bf16 products."""
+    tensor cores, a third of the tf32 tensor-core rate for float32 products
+    done as 3xTF32, or the bf16 tensor-core rate for bf16 products.
+    `previous_ms` is the replaced kernel's time on the same case, a constant
+    of this file that goes into the case's log line only: the summary line
+    holds what this run measured."""
     got = kernel_fn()
     ref = ref_fn()
     torch.cuda.synchronize()
@@ -138,6 +192,8 @@ def _case_record(torch, name, label, kernel_fn, plain_fn, ref_fn, library_fn,
         else "operations",
         "ok": ok,
     }
+    if previous_ms is not None:
+        rec["previous_ms"] = previous_ms
     log(f"[kernels] {json.dumps(rec)}")
     return rec
 
@@ -240,18 +296,23 @@ def _swin_block_weights(torch, randn, c, heads, hidden, dtype):
            "proj_w": randn(c, c) * c ** -0.5, "proj_b": 0.1 * randn(c),
            "fc1_w": randn(c, hidden) * c ** -0.5, "fc1_b": 0.1 * randn(hidden),
            "fc2_w": randn(hidden, c) * hidden ** -0.5, "fc2_b": 0.1 * randn(c)}
-    return {k: v if k in swin_block.F32_KEYS else v.to(dtype).contiguous()
-            for k, v in wts.items()}
+    wts = {k: v if k in swin_block.F32_KEYS else v.to(dtype).contiguous()
+           for k, v in wts.items()}
+    wts["packed"] = swin_block.pack_block_weights(wts, heads)
+    return wts
 
 
 def _swin_kernel_records(torch, randn):
     """K4, K5 and K6 at SwinIR-M's shapes on a 1024^2 crop (embed 180, 6
     heads of 30, window 8, MLP 360; 16,384 windows), float32 and bfloat16,
-    unshifted and shifted by 4. Each is held against its plain version in the
-    same dtype: float32 differs in summation order only; in bfloat16 that
-    order can flip the rounding of an intermediate by one ulp (2^-8), which
-    the later steps carry on (one attention: 2^-7 of the largest output; a
-    whole block: 2^-5). Library yardstick for K4 and K6:
+    unshifted and shifted by 4 (the caller's roll), K5 also with the shift
+    inside the kernel against roll -> plain -> roll. Each is held against its
+    plain version in the same dtype: float32 differs in summation order and
+    by 3xTF32's error (about 2^-21 of sum |a||b| per product, 2e-6 at
+    K = 360: well inside the same bounds); in bfloat16 the order can flip the
+    rounding of an intermediate by one ulp (2^-8), which the later steps
+    carry on (one attention: 2^-7 of the largest output; a whole block:
+    2^-5). Library yardstick for K4 and K6:
     F.scaled_dot_product_attention on partitioned q, k, v with the bias and
     the shift mask as a float attn_mask (made outside the timing); none for
     K5."""
@@ -269,7 +330,8 @@ def _swin_kernel_records(torch, randn):
     records = []
     for dtype in (torch.float32, torch.bfloat16):
         es = 4 if dtype == torch.float32 else 2
-        rate = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        rate = TF32X3_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        dname = str(dtype).replace("torch.", "")
         att_tol = (1e-5, 1e-6) if dtype == torch.float32 else (2.0 ** -7, 1e-6)
         blk_tol = (1e-4, 1e-5) if dtype == torch.float32 else (2.0 ** -5, 1e-6)
         for shift in (0, 4):
@@ -291,27 +353,44 @@ def _swin_kernel_records(torch, randn):
                 lambda: wa.swin_attention_nhwc_plain(qkv, bias, lab3, window=ws, heads=heads),
                 lambda: wa.swin_attention_nhwc_plain(qkv, bias, lab3, window=ws, heads=heads),
                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-                att_bytes, att_ops, *att_tol, ops_rate=rate, iters=10))
+                att_bytes, att_ops, *att_tol, ops_rate=rate, iters=10,
+                previous_ms=PREVIOUS_MS["swin_attention_nhwc", dname, shift]))
             records.append(_case_record(
                 torch, "fused_window_attention", f"SwinIR-M windows at 1024^2, shift {shift}",
                 lambda: wa.fused_window_attention(q, k, v, bias, lab2),
                 lambda: wa.window_attention_plain(q, k, v, bias, lab2),
                 lambda: wa.window_attention_plain(q, k, v, bias, lab2),
                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-                att_bytes, att_ops, *att_tol, ops_rate=rate, iters=10))
+                att_bytes, att_ops, *att_tol, ops_rate=rate, iters=10,
+                previous_ms=PREVIOUS_MS["fused_window_attention", dname, shift]))
             del qkv, q, k, v, mask
 
             x = randn(1, size, size, c, dtype=dtype)
             wts = _swin_block_weights(torch, randn, c, heads, hidden, dtype)
-            wt_bytes = sum(t.numel() * t.element_size() for t in wts.values())
+            wt_bytes = sum(wts[k].numel() * wts[k].element_size() for k in swin_block.ORDER)
+            blk_bytes = 2 * x.numel() * es + wt_bytes + lab_bytes
+            blk_ops = (2 * (4 * c * c + 2 * c * hidden) + 4 * n * c) * tokens
             records.append(_case_record(
                 torch, "fused_swin_block", f"SwinIR-M block at 1024^2, shift {shift}",
                 lambda: swin_block.fused_swin_block(x, wts, lab3, window=ws, heads=heads),
                 lambda: swin_block.fused_swin_block_plain(x, wts, lab3, window=ws, heads=heads),
                 lambda: swin_block.fused_swin_block_plain(x, wts, lab3, window=ws, heads=heads),
-                None, 2 * x.numel() * es + wt_bytes + lab_bytes,
-                (2 * (4 * c * c + 2 * c * hidden) + 4 * n * c) * tokens, *blk_tol,
-                ops_rate=rate, iters=5))
+                None, blk_bytes, blk_ops, *blk_tol, ops_rate=rate, iters=5,
+                previous_ms=PREVIOUS_MS["fused_swin_block", dname, shift]))
+            if shift:
+                # the same block with the roll in the kernel's addressing,
+                # against roll -> plain -> roll
+                def plain_rolled():
+                    return swin_block.fused_swin_block_plain(x, wts, lab3, window=ws,
+                                                             heads=heads, shift=shift)
+
+                records.append(_case_record(
+                    torch, "fused_swin_block",
+                    f"SwinIR-M block at 1024^2, shift {shift} inside the kernel",
+                    lambda: swin_block.fused_swin_block(x, wts, lab3, window=ws, heads=heads,
+                                                        shift=shift),
+                    plain_rolled, plain_rolled, None, blk_bytes, blk_ops, *blk_tol,
+                    ops_rate=rate, iters=5))
             del x
             torch.cuda.empty_cache()
 
@@ -324,7 +403,7 @@ def _swin_kernel_records(torch, randn):
         lambda: wa.window_attention_plain(q, k, v, bias, lab2),
         lambda: wa.window_attention_plain(q, k, v, bias, lab2), None,
         (4 * q.numel()) * 4 + bias.numel() * 4 + lab2.numel() * 4,
-        4 * n * c * 2 * tokens, 1e-5, 1e-6, iters=10))
+        4 * n * c * 2 * tokens, 1e-5, 1e-6, ops_rate=TF32X3_OPS_PER_S, iters=10))
     del q, k, v
     torch.cuda.empty_cache()
     return records
@@ -461,15 +540,29 @@ def phase_enhance(torch, rgi_sd, bise_sd, sr_sd, compute_dtype: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    # the fused route shifts inside K5: count every torch.roll of the run
+    rolls, roll = [], torch.roll
+
+    def counted_roll(*args, **kwargs):
+        rolls.append(1)
+        return roll(*args, **kwargs)
+
     kernels.reset_launch_counts()
     latencies, out = [], None
-    for _ in range(ENHANCE_REQUESTS):
-        t0 = time.perf_counter()
-        out = pipe(src, tgt, return_intermediates=True)
-        torch.cuda.synchronize()
-        latencies.append((time.perf_counter() - t0) * 1e3)
+    torch.roll = counted_roll
+    try:
+        for _ in range(ENHANCE_REQUESTS):
+            t0 = time.perf_counter()
+            out = pipe(src, tgt, return_intermediates=True)
+            torch.cuda.synchronize()
+            latencies.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        torch.roll = roll
     launches = kernels.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if rolls:
+        raise AssertionError(f"enhance {compute_dtype}: the fused route ran {len(rolls)} "
+                             f"torch.roll calls; K5 shifts in its addressing")
 
     want = dict.fromkeys(launches, 0)
     want.update({k: ENHANCE_REQUESTS * v for k, v in PER_CALL["exact"].items()})
@@ -488,7 +581,7 @@ def phase_enhance(torch, rgi_sd, bise_sd, sr_sd, compute_dtype: str):
         raise AssertionError(f"enhance {compute_dtype}: bad upscaler output "
                              f"{tuple(enhanced.shape)}")
     rec = {"dtype": compute_dtype, "requests": ENHANCE_REQUESTS, "latency_ms": latencies,
-           "peak_mem_gib": peak_gib, "launches": launches,
+           "peak_mem_gib": peak_gib, "launches": launches, "torch_roll_calls": len(rolls),
            "driven_changed_share": float((out["driven"] != torch.from_numpy(src).cuda())
                                          .float().mean()),
            "unclipped_min": float(enhanced.min()), "unclipped_max": float(enhanced.max())}

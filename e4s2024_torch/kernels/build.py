@@ -45,10 +45,9 @@ SIGNATURES = {
     # q, k, v, bias, labels, out, dtype, windows, heads, n, head_dim, scale,
     # device, stream
     "e4s_window_attention": (_P, _P, _P, _P, _P, _P, _I, _LL, _I, _I, _I, _F, _I, _P),
-    # x, ln1_s, ln1_b, qkv_w, qkv_b, proj_w, proj_b, bias, labels, ln2_s,
-    # ln2_b, fc1_w, fc1_b, fc2_w, fc2_b, out, dtype, batch, height, width,
-    # channels, heads, hidden, window, scale, eps, device, stream
-    "e4s_swin_block": (_P,) * 16 + (_I,) * 8 + (_F, _F, _I, _P),
+    # x, slabs, vec, bias, labels, out, dtype, batch, height, width, channels,
+    # heads, hidden, window, shift, scale, eps, device, stream
+    "e4s_swin_block": (_P,) * 6 + (_I,) * 9 + (_F, _F, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -57,14 +56,15 @@ _lib: ctypes.CDLL | None = None
 build_info: dict = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump)."""
     for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
                  "/usr/local/cuda"):
-        if home and (Path(home) / "bin" / "nvcc").exists():
-            return str(Path(home) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
+        if home and (Path(home) / "bin" / name).exists():
+            return str(Path(home) / "bin" / name)
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+        raise RuntimeError(f"{name} not found: set CUDA_HOME to the CUDA toolkit")
     return found
 
 
@@ -82,7 +82,7 @@ def _digest() -> str:
 
 
 def _compile(target: Path) -> None:
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -113,12 +113,17 @@ def _compile(target: Path) -> None:
                       report="\n".join(reports))
 
 
+def library_path() -> Path:
+    """Where the library of the current sources is, or will be, built."""
+    return BUILD_DIR / f"libe4s_kernels_{_digest()}.so"
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            target = BUILD_DIR / f"libe4s_kernels_{_digest()}.so"
+            target = library_path()
             if target.exists():
                 build_info.update(seconds=0.0, built=False, report="")
             else:

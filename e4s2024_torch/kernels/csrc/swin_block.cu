@@ -3,406 +3,576 @@
 //   out = y + fc2(gelu(fc1(LN2(y))))
 //
 // Replaces e4s2024_tpu/ops/swin_block.py::fused_swin_block (pallas_call at
-// :163). x and out are (B, H, W, C) contiguous in the compute type T; the
-// caller rolls x by -shift before and +shift after a shifted block and
-// passes the shifted image's window-region labels (H / w, W / w, n) int32.
-// Weights, as the JAX kernel takes them: LN scales and biases and the
-// relative-position bias (heads, n, n) in float32; qkv_w (C, 3C) with
-// columns [q|k|v] x head x head_dim, proj_w (C, C), fc1_w (C, Cm),
-// fc2_w (Cm, C) and every projection bias in T. Rounding follows the JAX
-// kernel: LN statistics in float32 in one pass (E[x^2] - mu^2, eps given),
-// every product accumulated in float32 and rounded to T before its bias is
-// added, softmax in float32, erf GELU in float32.
+// :163). x and out are (B, H, W, C) contiguous in the compute type T. Token
+// (ty, tx) of window (wy, wx) is pixel ((wy * w + ty + shift) mod H,
+// (wx * w + tx + shift) mod W), read and written there: the kernel does the
+// roll by -shift before and by +shift after a shifted block itself. The
+// labels (H / w, W / w, n) int32 are the shifted image's window regions.
+// Rounding follows the JAX kernel: LN statistics in float32 in one pass
+// (E[x^2] - mu^2, eps given), every product accumulated in float32 and
+// rounded to T before its bias is added, softmax in float32, erf GELU in
+// float32.
 //
 // Bound on the card: operations. Per token the block does
 // 2 * (3C^2 + C^2 + 2 * C * Cm) + 4 * n * C = 564,480 operations at C = 180,
 // Cm = 360, n = 64, against (C + C) * 4 = 1,440 bytes of activations in
-// float32: 392 operations a byte, far above the float32 ridge (20) and above
-// the bf16 tensor-core ridge (295). At 1024^2 that is 5.9e11 operations per
-// call.
+// float32: 392 operations a byte, above the bf16 tensor-core ridge (295).
+// At 1024^2 that is 5.9e11 operations a call: 0.60 ms at the bf16 tensor-core
+// rate. The float32 path runs three tf32 products for every float32 one
+// (3xTF32, window_core.cuh), so a third of the tf32 rate is the most it can
+// reach: 3 * 5.9e11 / 495e12 = 3.6 ms.
 //
-// Design: one block of 512 threads per 8 x 8 window, the window's whole
-// token tile in shared memory: x, then y, row-major; the LN output and the
-// attention output, then one MLP chunk, stored transposed, C x (n + 4); one
-// head's q, k, v and scores; the fc2 sum; two staging buffers for weights.
-// That is 209,536 bytes at C = 180, which needs the dynamic shared-memory
-// opt-in and leaves one block per SM. LN1, each head's qkv slice, the
-// attention, proj with the residual, LN2 and the MLP in chunks of
-// 3 * head_dim hidden units follow one another without leaving shared
-// memory: x is read once and the output written once.
+// Earlier versions, on an NVIDIA H100 80GB HBM3 at 700 W, 1024^2, float32:
+// about 83 ms (256 threads, float32 FMAs, weights read from global memory
+// one element a load), then 42.85 ms (512 threads, weights staged through
+// shared memory, 4 x 12 register tiles; bfloat16 44.33 ms on the same FMAs).
+// What held that version back, and what this design does about it:
 //
-// The four projections (92% of the operations) run in this body as float32
-// FMAs, one 4 x 12 or 4 x 6 register tile per thread (gemm_at). The
-// transposed A operand gives a thread its 4 rows in one 16-byte
-// shared-memory load per k. The weights pass through shared memory 16 rows
-// at a time, double-buffered: the block reads each weight once from L2 and
-// the next rows' loads are in flight during the current rows' FMAs. The
-// attention products use window_core.cuh's 2 x 4 and 2 x 2 tiles.
+// 1. No tensor cores. The four projections are wgmma.mma_async products:
+//    m64n96k16 bf16 for bfloat16, three m64n96k8 tf32 products (3xTF32) for
+//    float32. The block's two warpgroups each take 96 of a product's 192
+//    columns; a warp holds its 16 rows of A as fragments in registers and
+//    the tensor cores read B from shared memory. The attention products
+//    (64 x 64 x 32 a head) are mma.sync (window_core.cuh).
+// 2. FMAs fed faster than shared memory delivers. wgmma reads B once for
+//    all 64 rows; A costs one ldmatrix per 16 x 16 fragment.
+// 3. Idle threads. All eight warps work in every product.
+// 4. One block per SM in lock step. Tiles stay in their own type (bf16 as
+//    bf16); x is no longer kept (LN1 reads it from global memory and the
+//    residual re-reads it from L2), y lives in the attention output's tile
+//    and the MLP's hidden units in tiles that are dead by then: 112 KB in
+//    bfloat16, two blocks an SM, so that one window's LN, softmax, loads and
+//    stores overlap another's products. float32 needs 222 KB, one block;
+//    there the products of a slab overlap the split of the next.
+// 5. Weights re-read by every window. They are packed once on the host
+//    (ops/swin_block.py::pack_block_weights) into the stream of K slabs the
+//    block consumes, 192 columns by 64 bytes of k each in the core-matrix
+//    order wgmma reads, zero-padded, and arrive through a ring of
+//    shared-memory stages filled with cp.async three slabs ahead, across the
+//    attention and the epilogues too. The halves of float32 weights are
+//    split off in shared memory as a slab arrives, not stored: that keeps
+//    the L2 traffic at one read of every weight per window (0.59 MB in
+//    bfloat16, 1.2 MB in float32).
+// 6. Scalar attention core. Replaced by window_core.cuh::attend_rows; the
+//    scores never leave registers.
+// 7. torch.roll around shifted blocks. The shift is the kernel's `shift`.
 //
-// The first version (256 threads, 4 x 4 and 4 x 2 tiles over row-major A,
-// every thread reading its weights from global memory one element a load)
-// ran at 83 ms a call at 1024^2 in float32 on an H100 80GB HBM3 at 700 W;
-// this one at about half that.
-// Both stay well above the bound: with one block per SM the phases run one
-// after another, and each product feeds few FMAs per shared-memory load.
-// Tensor cores (mma / wgmma on bf16 tiles) and more than one block per SM
-// are later work.
+// Every product has the same shape, 64 x 192 x K: q, k and v of a pair of
+// heads (each padded to head_dim 32; 2 x 3 x 32 columns), proj, each half of
+// fc1 (hidden units padded to 2 x 192) and fc2 (K up to 384). So C <= 192,
+// head_dim <= 32, hidden <= 384. bfloat16 rounding goes through packed
+// conversions (round_pair, store_pair): conversions run at a quarter of the
+// ALU rate and were a third of the epilogues' time one value at a time.
 #include "window_core.cuh"
 
 namespace {
 
-// K5 runs 512 threads a block (K4 and K6 run window_core.cuh's 256).
-constexpr int kThreads = 512;
-using e4s::win::round_to;
+using e4s::win::kHeadElems;
+using e4s::win::kLdHead;
+using e4s::win::kMaxHeadDim;
+using e4s::win::kMaxTokens;
+using e4s::win::kThreads;
+using e4s::win::round_pair;
+using e4s::win::store_pair;
 
-struct BlockWeights {
-  const float* ln1_s;
-  const float* ln1_b;
-  const void* qkv_w;
-  const void* qkv_b;
-  const void* proj_w;
-  const void* proj_b;
-  const float* bias;
-  const float* ln2_s;
-  const float* ln2_b;
-  const void* fc1_w;
-  const void* fc1_b;
-  const void* fc2_w;
-  const void* fc2_b;
+constexpr int kTile = 192;  // output columns of every product
+// A warp's share of a product: the 16 rows of its place in its warpgroup and
+// the 96 columns of the warpgroup, twelve 16 x 8 accumulator fragments.
+constexpr int kGroupCols = kTile / 2;
+constexpr int kColTiles = kGroupCols / 8;
+constexpr int kAcc = 4 * kColTiles;
+constexpr int kSlabBytes = 64;  // bytes of k in one row of a slab of weights
+constexpr int kSlabSize = kTile * kSlabBytes;
+// What wgmma reads is laid out in 8 x 16-byte core matrices: next to each
+// other along k, then along the 24 groups of 8 columns.
+constexpr int kCoreBytes = 128;
+constexpr int kGroupStride = kSlabBytes / 16 * kCoreBytes;
+
+// Offsets (floats) into the packed float32 vector.
+constexpr int kVecLn1S = 0, kVecLn1B = kTile, kVecLn2S = 2 * kTile, kVecLn2B = 3 * kTile,
+              kVecProjB = 4 * kTile, kVecFc2B = 5 * kTile, kVecQkvB = 6 * kTile;
+
+template <typename T>
+struct Shape {
+  static constexpr int kSlab = kSlabBytes / static_cast<int>(sizeof(T));  // k of a slab
+  static constexpr int kSlabElems = kTile * kSlab;
+  // Row stride of the 64 x 192 tiles: the A fragments' eight rows fall into
+  // different banks with 16 bytes (ldmatrix, bfloat16) or 4 words (float32)
+  // beyond a multiple of 128 bytes.
+  static constexpr int kLdTile = kTile + (sizeof(T) == 2 ? 8 : 4);
+  // Stages of the ring and, in float32, two pairs of buffers for the halves
+  // of the slab in use and of the next: what fits beside the tiles with two
+  // blocks an SM in bfloat16 and one in float32.
+  static constexpr int kStages = sizeof(T) == 2 ? 3 : 2;
+  static constexpr int kRingElems = (kStages + (sizeof(T) == 4 ? 4 : 0)) * kSlabElems;
+  // lnt, ot, one pair of heads, the ring
+  static constexpr int kElems = 2 * kMaxTokens * kLdTile + 2 * kHeadElems + kRingElems;
 };
 
-// Rows of B staged in shared memory per step of gemm_at, and the widest B
-// it stages (16 column groups of 12).
-constexpr int kStageRows = 16;
-constexpr int kMaxCols = 192;
-constexpr int kStagePerThread = kStageRows * kMaxCols / kThreads;
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// Block-wide product of a transposed shared-memory A (K rows of M floats,
-// row stride lda, 16-byte aligned; M a multiple of 4) with B in global
-// memory, whose element (k, c) lies at B[k * ldb + col(c)]. Each thread owns
-// one 4 x CN output tile, so (M / 4) * ceil(N / CN) must not exceed the
-// block's threads (the host checks the widths), and hands each finished sum
-// to epi(row, column, sum). B goes through shared memory kStageRows rows at a
-// time, double-buffered in `stage` (2 * kStageRows * kMaxCols floats): the
-// block reads each weight once from L2, and the next rows' loads are in
-// flight while the current rows are multiplied.
-template <int CN, typename T, typename Col, typename Epi>
-__device__ __forceinline__ void gemm_at(const float* at, int lda, int m, const T* b,
-                                        long long ldb, Col col, int k_dim, int n_dim,
-                                        float* stage, Epi epi) {
-  static_assert(CN % 2 == 0, "CN must be even");
-  const int cgroups = (n_dim + CN - 1) / CN;
-  const bool active = static_cast<int>(threadIdx.x) < (m / 4) * cgroups;
-  const int r0 = active ? (threadIdx.x / cgroups) * 4 : 0;
-  const int c0 = active ? (threadIdx.x % cgroups) * CN : 0;
-  const int lds = (cgroups * CN + 3) & ~3;  // staged row stride, 16-byte multiple
-  // which staged element (row kk, column c) each thread moves, and from
-  // where: the same in every step, so the index arithmetic runs once; a
-  // thread with no element gets a row that is never fetched
-  float reg[kStagePerThread];
-  int row[kStagePerThread], dst[kStagePerThread];
-  long long src[kStagePerThread];
+// The shared-memory descriptor of a wgmma B operand in the layout above, no
+// swizzle: address, byte step between core matrices along k, byte step
+// between groups of 8 columns, all in units of 16 bytes.
+__device__ __forceinline__ uint64_t b_descriptor(const void* p) {
+  const uint64_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return ((addr >> 4) & 0x3fff) | static_cast<uint64_t>(kCoreBytes >> 4) << 16 |
+         static_cast<uint64_t>(kGroupStride >> 4) << 32;
+}
+
+// d (+)= a . b for the warpgroup's 64 rows and 96 columns: a is the calling
+// warp's 16 x k fragment in registers, b a descriptor; `add` = 0 overwrites d.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[kAcc], const uint32_t (&a)[4],
+                                           uint64_t b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(add));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[kAcc], const uint32_t (&a)[4],
+                                           uint64_t b, int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(add));
+}
+
+// One k step of the product: bf16 as it is; float32 as 3xTF32, the small
+// terms first (`b` describes the high halves, the low ones lie one slab on).
+__device__ __forceinline__ void wgmma_step(float (&d)[kAcc],
+                                           const e4s::win::Mma<__nv_bfloat16>::AFrag& a,
+                                           uint64_t b, int add) {
+  wgmma_bf16(d, a.r, b, add);
+}
+
+__device__ __forceinline__ void wgmma_step(float (&d)[kAcc], const e4s::win::Mma<float>::AFrag& a,
+                                           uint64_t b, int add) {
+  wgmma_tf32(d, a.lo, b, add);
+  wgmma_tf32(d, a.hi, b + (kSlabSize >> 4), 1);
+  wgmma_tf32(d, a.hi, b, 1);
+}
+
+// The ring of weight slabs. Every thread of the block holds the same
+// counters. Slab i of the packed stream lands in stage i % kStages with
+// cp.async, three slabs ahead of the one in use. In bfloat16 the tensor
+// cores read the stage itself. In float32 they read the slab's high and low
+// tf32 halves, which the block splits off the stage into one of two pairs
+// of buffers while the products of the slab before are still running.
+//
+// `start()` begins the first loads; `first()` makes slab 0 ready; then for
+// each slab `current()` is what its products read and `advance()`, called
+// once they are committed, makes the next slab ready, waits for them and
+// brings the block in step.
+template <typename T>
+struct WeightRing {
+  static constexpr int kStages = Shape<T>::kStages;
+  static constexpr bool kSplit = sizeof(T) == 4;
+  const T* src;
+  T* stages;
+  int total, queued, taken;
+
+  __device__ __forceinline__ void queue_next() {
+    if (queued < total) {
+      const char* from = reinterpret_cast<const char*>(src) +
+                         static_cast<long long>(queued) * kSlabSize;
+      const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(
+          stages + (queued % kStages) * Shape<T>::kSlabElems));
 #pragma unroll
-  for (int i = 0; i < kStagePerThread; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
-    const int kk = idx / n_dim, c = idx - kk * n_dim;
-    const bool in = idx < kStageRows * n_dim;
-    row[i] = in ? kk : k_dim;
-    dst[i] = in ? kk * lds + c : -1;
-    src[i] = in ? kk * ldb + col(c) : 0;
-  }
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kStagePerThread; ++i)
-      reg[i] = k0 + row[i] < k_dim ? e4s::load_f32(b + k0 * ldb + src[i]) : 0.f;
-  };
-  auto put = [&](float* buf) {
-#pragma unroll
-    for (int i = 0; i < kStagePerThread; ++i)
-      if (dst[i] >= 0) buf[dst[i]] = reg[i];
-  };
-  float acc[4][CN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
-  const int steps = (k_dim + kStageRows - 1) / kStageRows;
-  fetch(0);
-  put(stage);
-  __syncthreads();
-  for (int st = 0; st < steps; ++st) {
-    const float* cur = stage + (st & 1) * kStageRows * lds + c0;
-    if (st + 1 < steps) fetch((st + 1) * kStageRows);
-    if (active) {
-      const int kn = min(kStageRows, k_dim - st * kStageRows);
-      const float* a = at + st * kStageRows * lda + r0;
-#pragma unroll 4
-      for (int kk = 0; kk < kn; ++kk) {
-        const float4 av = *reinterpret_cast<const float4*>(a + kk * lda);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-        float bv[CN];
-        if constexpr (CN % 4 == 0) {
-#pragma unroll
-          for (int j = 0; j < CN; j += 4) {
-            const float4 v4 = *reinterpret_cast<const float4*>(cur + kk * lds + j);
-            bv[j] = v4.x, bv[j + 1] = v4.y, bv[j + 2] = v4.z, bv[j + 3] = v4.w;
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < CN; j += 2) {
-            const float2 v2 = *reinterpret_cast<const float2*>(cur + kk * lds + j);
-            bv[j] = v2.x, bv[j + 1] = v2.y;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(ar[i], bv[j], acc[i][j]);
+      for (int i = 0; i < kSlabSize / 16 / kThreads; ++i) {
+        const int piece = (threadIdx.x + i * kThreads) * 16;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to + piece),
+                     "l"(from + piece)
+                     : "memory");
       }
     }
-    if (st + 1 < steps) put(stage + ((st + 1) & 1) * kStageRows * lds);
-    __syncthreads();
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    ++queued;
   }
-  if (active) {
+  // The halves of slab `i`, which has arrived in its stage: hi = the value
+  // with its mantissa cut to tf32's 10 bits, lo = the rest.
+  __device__ __forceinline__ void split(int i) {
+    const float* stage = stages + (i % kStages) * Shape<T>::kSlabElems;
+    float* hi = stages + (kStages + 2 * (i % 2)) * Shape<T>::kSlabElems;
+    float* lo = hi + Shape<T>::kSlabElems;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j)
-        if (c0 + j < n_dim) epi(r0 + i, c0 + j, acc[i][j]);
-  }
-}
-
-// LayerNorm of n rows of C floats (row stride ld) from src into the
-// transposed dst (dst[c * ldt + row]), one warp per row; single-pass float32
-// statistics as the JAX kernel takes them.
-template <typename T>
-__device__ __forceinline__ void layer_norm_t(const float* src, int ld, float* dst, int ldt, int n,
-                                             int c, const float* scale, const float* shift,
-                                             float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < n; r += blockDim.x >> 5) {
-    const float* row = src + r * ld;
-    float s = 0.f, s2 = 0.f;
-    for (int i = lane; i < c; i += 32) {
-      const float v = row[i];
-      s += v;
-      s2 += v * v;
+    for (int j = 0; j < Shape<T>::kSlabElems / 4 / kThreads; ++j) {
+      const int at = (threadIdx.x + j * kThreads) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(stage + at);
+      float4 h, l;
+      h.x = __uint_as_float(__float_as_uint(v.x) & 0xffffe000u), l.x = v.x - h.x;
+      h.y = __uint_as_float(__float_as_uint(v.y) & 0xffffe000u), l.y = v.y - h.y;
+      h.z = __uint_as_float(__float_as_uint(v.z) & 0xffffe000u), l.z = v.z - h.z;
+      h.w = __uint_as_float(__float_as_uint(v.w) & 0xffffe000u), l.w = v.w - h.w;
+      *reinterpret_cast<float4*>(hi + at) = h;
+      *reinterpret_cast<float4*>(lo + at) = l;
     }
-    s = e4s::win::warp_sum(s);
-    s2 = e4s::win::warp_sum(s2);
-    const float mu = s / c;
-    const float inv = rsqrtf(s2 / c - mu * mu + eps);
-    for (int i = lane; i < c; i += 32)
-      dst[i * ldt + r] = round_to<T>((row[i] - mu) * inv * scale[i] + shift[i]);
+  }
+  // Slab `i` ready for the tensor cores, which read through the asynchronous
+  // proxy what ordinary stores and cp.async wrote; then the products in
+  // flight done and the block in step.
+  template <bool kProducts>
+  __device__ __forceinline__ void make_ready(int i) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // all but the newest load
+    if constexpr (kSplit) {
+      __syncthreads();
+      if (i < total) split(i);
+    }
+    // (the wait first: ptxas 12 crashes on a proxy fence between a commit
+    // and its wait)
+    if constexpr (kProducts) asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (kSplit || kProducts) queue_next();  // into the stage read for the last time just now
+  }
+  __device__ __forceinline__ void start(const T* packed, T* buffers, int slabs) {
+    src = packed, stages = buffers, total = slabs, queued = 0, taken = 0;
+    for (int i = 0; i < kStages; ++i) queue_next();
+  }
+  __device__ __forceinline__ void first() { make_ready<false>(0); }
+  __device__ __forceinline__ const T* current() const {
+    return stages + (kSplit ? kStages + 2 * (taken % 2) : taken % kStages) * Shape<T>::kSlabElems;
+  }
+  __device__ __forceinline__ void advance() { make_ready<true>(++taken); }
+};
+
+// acc = A . B for the calling warp's 16 rows and its warpgroup's 96 columns.
+// A's columns [0, 192) lie in tile a0 and [192, 384) in tile a1 (row stride
+// kLdTile); B is the next `slabs` slabs of the ring. A warp loads its A
+// fragments into registers and the tensor cores read B from shared memory.
+// Returns with the products done and the block in step.
+template <typename T>
+__device__ __forceinline__ void gemm(float (&acc)[kAcc], const T* a0, const T* a1, int slabs,
+                                     WeightRing<T>& ring) {
+  using M = e4s::win::Mma<T>;
+  constexpr int kLd = Shape<T>::kLdTile;
+  constexpr int kSteps = Shape<T>::kSlab / M::kStep;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  for (int s = 0; s < slabs; ++s) {
+    const char* b = reinterpret_cast<const char*>(ring.current()) +
+                    (warp / 4) * (kGroupCols / 8) * kGroupStride;
+    const int k0 = s * Shape<T>::kSlab;
+    const T* a = (k0 < kTile ? a0 + k0 : a1 + (k0 - kTile)) + 16 * (warp % 4) * kLd;
+    typename M::AFrag af[kSteps];
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks)
+      af[ks] = M::load_a_in_order(a + ks * M::kStep, kLd, g, t4);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks)
+      wgmma_step(acc, af[ks], b_descriptor(b + ks * 2 * kCoreBytes), s + ks > 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    ring.advance();
   }
 }
 
+// epi(row, column, tile, a, b, bias_a, bias_b) for every pair of neighbouring
+// sums of the warp (tile = which of its twelve 8-column tiles, a constant
+// where the loop is unrolled), with the two columns' entries of `bias` (192
+// floats in global memory), all of which are loaded before the first sum is
+// handed on.
+template <typename Epi>
+__device__ __forceinline__ void for_each_pair(const float (&acc)[kAcc], const float* bias,
+                                              Epi epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int col0 = (warp / 4) * kGroupCols + 2 * t4, row = 16 * (warp % 4) + g;
+  float2 bv[kColTiles];
+#pragma unroll
+  for (int j = 0; j < kColTiles; ++j)
+    bv[j] = *reinterpret_cast<const float2*>(bias + col0 + 8 * j);
+#pragma unroll
+  for (int j = 0; j < kColTiles; ++j) {
+    epi(row, col0 + 8 * j, j, acc[4 * j], acc[4 * j + 1], bv[j].x, bv[j].y);
+    epi(row + 8, col0 + 8 * j, j, acc[4 * j + 2], acc[4 * j + 3], bv[j].x, bv[j].y);
+  }
+}
+
+// LayerNorm of the calling warp's 8 rows into the tile `dst` (columns past c
+// zero); load(row, column) gives the input. Single-pass float32 statistics
+// as the JAX kernel takes them. c <= 192. Every load is unconditional, so
+// that a batch of rows is in flight together.
+template <typename T, typename Load>
+__device__ __forceinline__ void layer_norm_rows(Load load, T* dst, int c, const float* scale,
+                                                const float* shift, float eps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kPer = kTile / 32;
+  constexpr int kRows = kMaxTokens / e4s::win::kWarps;
+  constexpr int kBatch = 4;  // rows whose loads are in flight together
+  float sc[kPer], sh[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    sc[i] = scale[lane + 32 * i];  // padded to 192 by the packing
+    sh[i] = shift[lane + 32 * i];
+  }
+  for (int r0 = kRows * warp; r0 < kRows * (warp + 1); r0 += kBatch) {
+    float v[kBatch][kPer];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b)
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) v[b][i] = load(r0 + b, min(lane + 32 * i, c - 1));
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      float s = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        if (lane + 32 * i >= c) v[b][i] = 0.f;
+        s += v[b][i];
+        s2 += v[b][i] * v[b][i];
+      }
+      s = e4s::win::warp_sum(s);
+      s2 = e4s::win::warp_sum(s2);
+      const float mu = s / c;
+      const float inv = rsqrtf(s2 / c - mu * mu + eps);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int col = lane + 32 * i;
+        const float o = col < c ? (v[b][i] - mu) * inv * sc[i] + sh[i] : 0.f;
+        e4s::store_f32(dst + (r0 + b) * Shape<T>::kLdTile + col, o);
+      }
+    }
+  }
+}
+
+// erf GELU in float32. For bfloat16, whose result is rounded to 8 bits right
+// after, erf is Abramowitz and Stegun's 7.1.26 (absolute error 1.5e-7) on
+// the fast exponential and reciprocal: a third of erff's instructions.
+template <typename T>
 __device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-// Hidden units of fc1 per MLP chunk: one head's qkv width.
-__host__ __device__ inline int mlp_chunk(int c, int heads, int hidden) {
-  return 3 * (c / heads) < hidden ? 3 * (c / heads) : hidden;
-}
-
-// Whether gemm_at can take the block's products: one 4 x 12 tile per thread
-// over the C-wide ones (qkv is not one of them), one 4 x 6 tile per thread
-// over the qkv slice of a head and an MLP chunk, and at most kMaxCols staged
-// columns. With 8 x 8 windows: C <= 192.
-__host__ __device__ inline bool widths_ok(int c, int heads, int n) {
-  const int wide = (c + 11) / 12, narrow = (3 * (c / heads) + 5) / 6;
-  return (n / 4) * wide <= kThreads && wide * 12 <= kMaxCols &&
-         (n / 4) * narrow <= kThreads && narrow * 6 <= kMaxCols;
-}
-
-// Shared-memory floats of one block: x/y (n x (C + 1)), the transposed LN
-// output (C x (n + 4)), the transposed attention output or the fc2 sum, one
-// head's attention buffers or one transposed MLP chunk, and gemm_at's two
-// staging buffers.
-__host__ __device__ inline long long work_floats(int c, int heads, int hidden, int n) {
-  const long long head = e4s::win::head_floats(n, c / heads);
-  const long long mlp = static_cast<long long>(mlp_chunk(c, heads, hidden)) * (n + 4);
-  return head > mlp ? head : mlp;
-}
-
-__host__ __device__ inline long long smem_floats(int c, int heads, int hidden, int n) {
-  const long long tile = static_cast<long long>(n) * (c + 1);
-  const long long tile_t = static_cast<long long>(c) * (n + 4);
-  return tile + tile_t + (tile_t > tile ? tile_t : tile) + work_floats(c, heads, hidden, n) +
-         2LL * kStageRows * kMaxCols;
+  const float z = v * 0.70710678118654752f;
+  if constexpr (sizeof(T) == 4) return 0.5f * v * (1.f + erff(z));
+  const float a = fabsf(z);
+  const float t = __frcp_rn(fmaf(0.3275911f, a, 1.f));
+  const float poly =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f),
+                       -0.284496736f),
+               0.254829592f);
+  const float erf_a = 1.f - poly * __expf(-a * a);
+  return 0.5f * v * (1.f + copysignf(erf_a, z));
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-swin_block_kernel(const T* __restrict__ x, T* __restrict__ out, BlockWeights wt,
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
+swin_block_kernel(const T* __restrict__ x, T* __restrict__ out, const T* __restrict__ slabs,
+                  const float* __restrict__ vec, const float* __restrict__ bias,
                   const int* __restrict__ labels, int height, int width, int c, int heads,
-                  int cm, int window, int chunk, float scale, float eps) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int lab[e4s::win::kMaxTokens];
+                  int cm, int window, int shift, float scale, float eps) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ int lab[kMaxTokens];
+  __shared__ long long pix[kMaxTokens];
+  T* lnt = reinterpret_cast<T*>(smem_raw);  // LN1, LN2, then hidden units 192..383
+  constexpr int kLdTile = Shape<T>::kLdTile;
+  constexpr int kSlab = Shape<T>::kSlab;
+  T* ot = lnt + kMaxTokens * kLdTile;       // attention output, then y
+  T* qkv = ot + kMaxTokens * kLdTile;       // a pair of heads, then hidden units 0..191
+  T* stages = qkv + 2 * kHeadElems;
+
   const int n = window * window;
   const int hd = c / heads;
-  const int ld = c + 1;
-  const int ldt = n + 4;
-  const int ldq = hd + 1;
-  float* xs = smem;            // x, then y after the attention residual (row-major)
-  float* lnt = xs + n * ld;    // LN1, then LN2 (transposed)
-  float* big = lnt + c * ldt;  // attention output (transposed), then the fc2 sum
-  float* q = big + (c * ldt > n * ld ? c * ldt : n * ld);  // one head; later an MLP chunk
-  float* stage = q + work_floats(c, heads, cm, n);        // gemm_at's staged weights
-  float* k = q + n * ldq;
-  float* v = k + n * ldq;
-  float* s = v + n * ldq;
-  float* hid = q;              // one MLP chunk (transposed)
+  const int pairs = ceil_div(heads, 2);
+  const int chunks = ceil_div(cm, kTile);
+  const int c_slabs = ceil_div(c, kSlab);
+  const int warp = threadIdx.x >> 5;
+  const float* fc1_b = vec + kVecQkvB + pairs * kTile;
 
-  const T* qkv_w = static_cast<const T*>(wt.qkv_w);
-  const T* qkv_b = static_cast<const T*>(wt.qkv_b);
-  const T* proj_w = static_cast<const T*>(wt.proj_w);
-  const T* proj_b = static_cast<const T*>(wt.proj_b);
-  const T* fc1_w = static_cast<const T*>(wt.fc1_w);
-  const T* fc1_b = static_cast<const T*>(wt.fc1_b);
-  const T* fc2_w = static_cast<const T*>(wt.fc2_w);
-  const T* fc2_b = static_cast<const T*>(wt.fc2_b);
+  WeightRing<T> ring;
+  ring.start(slabs, stages, (pairs + 1 + chunks) * c_slabs + ceil_div(cm, kSlab));
 
-  auto pixel = [&](int t) {
-    const int ty = t / window, tx = t - ty * window;
-    const long long yy = static_cast<long long>(blockIdx.y) * window + ty;
-    const long long xx = static_cast<long long>(blockIdx.x) * window + tx;
-    return (static_cast<long long>(blockIdx.z) * height + yy) * width + xx;
-  };
-  auto same = [](int j) { return static_cast<long long>(j); };
-
-  for (int i = threadIdx.x; i < n * c; i += blockDim.x) {
-    const int t = i / c, ch = i - t * c;
-    xs[t * ld + ch] = e4s::load_f32(x + pixel(t) * c + ch);
-  }
   const bool masked = labels != nullptr;
-  if (masked) {
-    const int* src = labels + (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * n;
-    for (int t = threadIdx.x; t < n; t += blockDim.x) lab[t] = src[t];
+  // token rows past n repeat the window's tokens, so that every row holds
+  // real data and no load needs a condition; nothing is stored for them
+  if (threadIdx.x < kMaxTokens) {
+    const int t = threadIdx.x % n;
+    const int ty = t / window, tx = t - ty * window;
+    const int yy = (static_cast<int>(blockIdx.y) * window + ty + shift) % height;
+    const int xx = (static_cast<int>(blockIdx.x) * window + tx + shift) % width;
+    pix[threadIdx.x] = (static_cast<long long>(blockIdx.z) * height + yy) * width + xx;
+    lab[threadIdx.x] =
+        masked ? labels[(static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * n + t] : 0;
   }
-  __syncthreads();
-  layer_norm_t<T>(xs, ld, lnt, ldt, n, c, wt.ln1_s, wt.ln1_b, eps);
+  // the attention output's columns past C are read by proj and never written
+  for (int i = threadIdx.x; i < kMaxTokens * kLdTile; i += kThreads) e4s::store_f32(ot + i, 0.f);
   __syncthreads();
 
-  for (int h = 0; h < heads; ++h) {
-    // this head's q, k and v: columns part * C + h * hd + d of qkv_w
-    auto col = [=](int j) {
-      const int part = j / hd;
-      return static_cast<long long>(part) * c + h * hd + (j - part * hd);
-    };
-    gemm_at<6>(lnt, ldt, n, qkv_w, 3LL * c, col, c, 3 * hd, stage, [&](int r, int j, float a) {
-      const int part = j / hd, d = j - part * hd;
-      const float val = round_to<T>(round_to<T>(a) + e4s::load_f32(qkv_b + col(j)));
-      if (part == 0)
-        q[r * ldq + d] = round_to<T>(val * scale);
-      else if (part == 1)
-        k[r * ldq + d] = val;
-      else
-        v[r * ldq + d] = val;
+  layer_norm_rows<T>(
+      [&](int row, int col) { return e4s::load_f32(x + pix[row] * c + col); },
+      lnt, c, vec + kVecLn1S, vec + kVecLn1B, eps);
+  ring.first();  // also brings the block in step
+  const uint32_t differ = e4s::win::label_mask(masked ? lab : nullptr, n, 16 * (warp % 4));
+  float acc[kAcc];
+  for (int p = 0; p < pairs; ++p) {
+    // q, k, v of heads 2p and 2p + 1: column = head * 96 + part * 32 + d
+    gemm<T>(acc, lnt, lnt, c_slabs, ring);
+    for_each_pair(acc, vec + kVecQkvB + p * kTile,
+                  [&](int row, int col, int tile, float a, float b, float bias_a, float bias_b) {
+      // a warpgroup's 96 columns are one head's q, k and v
+      const int part = tile / (kMaxHeadDim / 8);
+      T* dst = qkv + (warp / 4) * kHeadElems + row * kLdHead + col % kGroupCols;
+      // (the store rounds last)
+      round_pair<T>(a, b);
+      a += bias_a, b += bias_b;
+      if (part == 0) {
+        round_pair<T>(a, b);
+        a *= scale, b *= scale;
+      }
+      store_pair(dst, a, b);
     });
     __syncthreads();
-    e4s::win::attend_head<T, 2>(q, k, v, s, n, hd, wt.bias + static_cast<long long>(h) * n * n,
-                             masked ? lab : nullptr, [&](int t, int d, float a) {
-                               big[(h * hd + d) * ldt + t] = round_to<T>(a);
-                             });
-    __syncthreads();
+    // four warps a head, 16 query rows each
+    const int h = 2 * p + warp / 4;
+    if (h < heads) {
+      e4s::win::attend_rows<T>(
+          qkv + (warp / 4) * kHeadElems, n, bias + static_cast<long long>(h) * n * n, differ,
+          16 * (warp % 4), [&](int row, int col, float a, float b) {
+            // an even hd keeps h * hd + col even: the pair is aligned
+            e4s::win::store_in_head(ot + row * kLdTile + h * hd + col, col, hd, a, b);
+          });
+    }
+    // the next product brings the block in step before its epilogue
+    // overwrites this pair's q, k and v
   }
+  __syncthreads();
 
-  // y = x + round(attn . proj_w) + proj_b, rounded after each add; in place
-  gemm_at<12>(big, ldt, n, proj_w, c, same, c, c, stage, [&](int r, int j, float a) {
-    const float y = round_to<T>(xs[r * ld + j] + round_to<T>(a));
-    xs[r * ld + j] = round_to<T>(y + e4s::load_f32(proj_b + j));
+  // y = x + round(attn . proj_w) + proj_b, rounded after each add; y takes
+  // the attention output's place once every warp has read it
+  gemm<T>(acc, ot, ot, c_slabs, ring);
+  for_each_pair(acc, vec + kVecProjB,
+                [&](int row, int col, int tile, float a, float b, float bias_a, float bias_b) {
+    const T* xr = x + pix[row] * c;
+    round_pair<T>(a, b);
+    a += e4s::load_f32(xr + min(col, c - 1));
+    b += e4s::load_f32(xr + min(col + 1, c - 1));
+    round_pair<T>(a, b);
+    a = col < c ? a + bias_a : 0.f;
+    b = col + 1 < c ? b + bias_b : 0.f;
+    store_pair(ot + row * kLdTile + col, a, b);  // rounds last
   });
   __syncthreads();
-  layer_norm_t<T>(xs, ld, lnt, ldt, n, c, wt.ln2_s, wt.ln2_b, eps);
+  layer_norm_rows<T>([&](int row, int col) { return e4s::load_f32(ot + row * kLdTile + col); },
+                     lnt, c, vec + kVecLn2S, vec + kVecLn2B, eps);
+  __syncthreads();
+  // hidden units 0..191 take the heads' place, 192..383 LN2's once every
+  // warp has read it
+  for (int ch = 0; ch < chunks; ++ch) {
+    gemm<T>(acc, lnt, lnt, c_slabs, ring);
+    T* hid = ch == 0 ? qkv : lnt;
+    for_each_pair(acc, fc1_b + ch * kTile,
+                  [&](int row, int col, int tile, float a, float b, float bias_a, float bias_b) {
+      store_pair(hid + row * kLdTile + col, gelu_erf<T>(a + bias_a), gelu_erf<T>(b + bias_b));
+    });
+  }
   __syncthreads();
 
-  for (int c0 = 0; c0 < cm; c0 += chunk) {
-    const int w = min(chunk, cm - c0);
-    gemm_at<6>(lnt, ldt, n, fc1_w, cm, [=](int j) { return static_cast<long long>(c0 + j); }, c,
-               w, stage, [&](int r, int j, float a) {
-                 hid[j * ldt + r] = round_to<T>(gelu_erf(a + e4s::load_f32(fc1_b + c0 + j)));
-               });
-    __syncthreads();
-    gemm_at<12>(hid, ldt, n, fc2_w + static_cast<long long>(c0) * c, c, same, w, c, stage,
-                [&](int r, int j, float a) {
-                  big[r * ld + j] = (c0 == 0 ? 0.f : big[r * ld + j]) + a;
-                });
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < n * c; i += blockDim.x) {
-    const int t = i / c, ch = i - t * c;
-    const float o = round_to<T>(xs[t * ld + ch] + round_to<T>(big[t * ld + ch]));
-    e4s::store_f32(out + pixel(t) * c + ch, o + e4s::load_f32(fc2_b + ch));
-  }
+  gemm<T>(acc, qkv, lnt, ceil_div(cm, kSlab), ring);
+  for_each_pair(acc, vec + kVecFc2B,
+                [&](int row, int col, int tile, float a, float b, float bias_a, float bias_b) {
+    round_pair<T>(a, b);
+    a += e4s::load_f32(ot + row * kLdTile + col);
+    b += e4s::load_f32(ot + row * kLdTile + col + 1);
+    round_pair<T>(a, b);
+    T* dst = out + pix[row] * c + col;
+    if (row >= n) return;
+    // C even keeps pix * C + col even: the pair is aligned
+    if (c % 2 == 0) {
+      if (col < c) store_pair(dst, a + bias_a, b + bias_b);
+    } else {
+      if (col < c) e4s::store_f32(dst, a + bias_a);
+      if (col + 1 < c) e4s::store_f32(dst + 1, b + bias_b);
+    }
+  });
 }
 
 template <typename T>
-int launch(const void* x, void* out, const BlockWeights& wt, const int* labels, int batch,
-           int height, int width, int c, int heads, int cm, int window, int chunk, int smem,
-           float scale, float eps, cudaStream_t stream) {
+int launch(const void* x, void* out, const void* slabs, const float* vec, const float* bias,
+           const int* labels, int batch, int height, int width, int c, int heads, int cm,
+           int window, int shift, float scale, float eps, int limit, cudaStream_t stream) {
+  const int smem = Shape<T>::kElems * static_cast<int>(sizeof(T));
+  // the static label and pixel arrays share the block's shared memory
+  if (smem + kMaxTokens * 12 > limit) return static_cast<int>(cudaErrorInvalidValue);
   auto* kernel = swin_block_kernel<T>;
-  const cudaError_t err =
+  cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  // all of the SM's memory as shared memory: two bfloat16 blocks need it
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(width / window, height / window, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<T*>(out), wt,
-                                           labels, height, width, c, heads, cm, window, chunk,
-                                           scale, eps);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<T*>(out),
+                                           static_cast<const T*>(slabs), vec, bias, labels,
+                                           height, width, c, heads, cm, window, shift, scale,
+                                           eps);
   return e4s::launch_status();
 }
 
 }  // namespace
 
-// K5. x and out (batch, height, width, channels) contiguous in `dtype`;
-// weights as BlockWeights describes, hidden = fc1 width; labels
-// (height / window, width / window, window^2) int32 or null. `scale` is
-// head_dim^-1/2 already rounded to `dtype`. Requires height and width
-// multiples of window, window^2 a multiple of 4 up to 64, widths_ok(...)
-// (e4s2024_torch/ops/swin_block.py::widths_ok computes the same) and the
-// shared memory of smem_floats(...) within the card's limit per block.
-extern "C" int e4s_swin_block(const void* x, const void* ln1_s, const void* ln1_b,
-                              const void* qkv_w, const void* qkv_b, const void* proj_w,
-                              const void* proj_b, const void* bias, const void* labels,
-                              const void* ln2_s, const void* ln2_b, const void* fc1_w,
-                              const void* fc1_b, const void* fc2_w, const void* fc2_b, void* out,
-                              int dtype, int batch, int height, int width, int channels,
-                              int heads, int hidden, int window, float scale, float eps,
+// K5. x and out (batch, height, width, channels) contiguous in `dtype`.
+// `slabs` (in `dtype`) and `vec` (float32) are the block's weights as
+// e4s2024_torch/ops/swin_block.py::pack_block_weights lays them out for
+// `dtype`; bias (heads, n, n) float32 with n = window^2; labels
+// (height / window, width / window, n) int32 or null. `shift` in
+// [0, min(height, width)) is added to every token's pixel coordinates,
+// modulo the image. `scale` is head_dim^-1/2 already rounded to `dtype`.
+// Requires height and width multiples of window, n <= 64, channels <= 192
+// and a multiple of heads, head_dim <= 32, hidden <= 384
+// (ops/swin_block.py::widths_ok computes the same).
+extern "C" int e4s_swin_block(const void* x, const void* slabs, const void* vec,
+                              const void* bias, const void* labels, void* out, int dtype,
+                              int batch, int height, int width, int channels, int heads,
+                              int hidden, int window, int shift, float scale, float eps,
                               int device, void* stream) {
   const int n = window * window;
-  if (heads <= 0 || window <= 0 || hidden <= 0 || channels % heads != 0 ||
-      height % window != 0 || width % window != 0 || n < 4 || n > e4s::win::kMaxTokens ||
-      n % 4 != 0 || channels / heads > e4s::win::kMaxHeadDim ||
-      !widths_ok(channels, heads, n) || batch > e4s::kMaxGridYZ ||
-      height / window > e4s::kMaxGridYZ)
+  if (heads <= 0 || window <= 0 || hidden <= 0 || channels <= 0 || channels % heads != 0 ||
+      height % window != 0 || width % window != 0 || n > kMaxTokens || channels > kTile ||
+      channels / heads > kMaxHeadDim || hidden > 2 * kTile || shift < 0 ||
+      batch > e4s::kMaxGridYZ || height / window > e4s::kMaxGridYZ)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || height <= 0 || width <= 0) return 0;
-  const long long smem =
-      static_cast<long long>(sizeof(float)) * smem_floats(channels, heads, hidden, n);
+  if (shift >= height || shift >= width) return static_cast<int>(cudaErrorInvalidValue);
   int limit = 0;
   err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the labels' static array shares the block's shared memory
-  if (smem + static_cast<long long>(sizeof(int)) * e4s::win::kMaxTokens > limit)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int chunk = mlp_chunk(channels, heads, hidden);
-  const BlockWeights wt{static_cast<const float*>(ln1_s), static_cast<const float*>(ln1_b),
-                        qkv_w, qkv_b, proj_w, proj_b, static_cast<const float*>(bias),
-                        static_cast<const float*>(ln2_s), static_cast<const float*>(ln2_b),
-                        fc1_w, fc1_b, fc2_w, fc2_b};
+  const float* v = static_cast<const float*>(vec);
+  const float* bs = static_cast<const float*>(bias);
   const int* lab = static_cast<const int*>(labels);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case e4s::kFloat32:
-      return launch<float>(x, out, wt, lab, batch, height, width, channels, heads, hidden, window,
-                           chunk, static_cast<int>(smem), scale, eps, s);
+      return launch<float>(x, out, slabs, v, bs, lab, batch, height, width, channels, heads,
+                           hidden, window, shift, scale, eps, limit, s);
     case e4s::kBFloat16:
-      return launch<__nv_bfloat16>(x, out, wt, lab, batch, height, width, channels, heads,
-                                   hidden, window, chunk, static_cast<int>(smem), scale, eps, s);
+      return launch<__nv_bfloat16>(x, out, slabs, v, bs, lab, batch, height, width, channels,
+                                   heads, hidden, window, shift, scale, eps, limit, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -45,7 +45,8 @@ from torch import nn
 
 from e4s2024_torch import resolve_device
 from e4s2024_torch.ops.resize import resize_bilinear, resize_nearest
-from e4s2024_torch.ops.swin_block import block_weights, fused_swin_block
+from e4s2024_torch.ops.swin_block import (
+    block_weights, fused_swin_block, pack_block_weights)
 # window_partition and window_reverse are part of this module's interface too,
 # as in the JAX module
 from e4s2024_torch.ops.window_attention import (  # noqa: F401
@@ -258,13 +259,20 @@ class SwinIR(nn.Module):
             for layer in self.layers])
 
     def fused_weights(self, dtype: torch.dtype) -> list[list[dict]]:
-        """Per RSTB, per block: the weight dict K5 takes in `dtype`."""
+        """Per RSTB, per block: the weight dict K5 takes in `dtype`, on a card
+        with the kernel's packed copy under "packed"."""
         dev = self.conv_first.weight.device
         biases = self._biases()
+
+        def weights(blk, bias):
+            wts = block_weights(blk.norm1, blk.attn.qkv, blk.attn.proj, bias, blk.norm2,
+                                blk.mlp.fc1, blk.mlp.fc2, dtype)
+            if dev.type == "cuda":
+                wts["packed"] = pack_block_weights(wts, blk.heads)
+            return wts
+
         return self._cached(("fused", dtype, str(dev)), lambda: [
-            [block_weights(blk.norm1, blk.attn.qkv, blk.attn.proj, bias, blk.norm2,
-                           blk.mlp.fc1, blk.mlp.fc2, dtype)
-             for blk, bias in zip(layer.residual_group.blocks, layer_bias)]
+            [weights(blk, bias) for blk, bias in zip(layer.residual_group.blocks, layer_bias)]
             for layer, layer_bias in zip(self.layers, biases)])
 
     # ---------------- forward ----------------
@@ -305,21 +313,16 @@ class SwinIR(nn.Module):
 
 def apply_fused(model: SwinIR, x: torch.Tensor) -> torch.Tensor:
     """SwinIR forward with every Swin block as one call of kernel K5 (the
-    counterpart of the JAX `apply_fused`). Shifted blocks roll x before and
-    after the kernel."""
+    counterpart of the JAX `apply_fused`). A shifted block hands its shift to
+    the kernel, which rolls in its addressing: no rolled copy is made."""
     feat, body = model._head(x)
     h, w = body.shape[1:3]
-    shift = model.window // 2
     for layer, layer_wts in zip(model.layers, model.fused_weights(model.dtype)):
         res = body
         for blk, wts in zip(layer.residual_group.blocks, layer_wts):
-            labels = None
-            if blk.shift:
-                body = torch.roll(body, (-shift, -shift), dims=(1, 2))
-                labels = model._labels(h, w, body.device)
-            body = fused_swin_block(body, wts, labels, window=model.window, heads=blk.heads)
-            if blk.shift:
-                body = torch.roll(body, (shift, shift), dims=(1, 2))
+            labels = model._labels(h, w, body.device) if blk.shift else None
+            body = fused_swin_block(body, wts, labels, window=model.window, heads=blk.heads,
+                                    shift=blk.shift)
         body = _nhwc(_conv(layer.conv, _nchw(body))) + res
     return model._tail(feat, body)
 

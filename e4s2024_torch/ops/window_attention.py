@@ -112,8 +112,8 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            labels: torch.Tensor | None = None) -> torch.Tensor:
     """Window attention over partitioned q, k, v (BW, heads, n, hd): the plain
     version on the CPU, kernel K6 on a CUDA device (q, k, v float32 or
-    bfloat16; bias float32; labels (BW, n) int32 or None; n a multiple of 4
-    up to 64; hd <= 64)."""
+    bfloat16; bias float32; labels (BW, n) int32 or None; n <= 64 and
+    hd <= 32, which the kernel pads to 64 and 32)."""
     if kernels.use_plain(q):
         return window_attention_plain(q, k, v, bias, labels)
     name = "fused_window_attention"
@@ -121,9 +121,8 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: q, k, v must be one (BW, heads, n, hd) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     bw, heads, n, hd = q.shape
-    if not (4 <= n <= 64 and n % 4 == 0 and 1 <= hd <= 64):
-        raise ValueError(f"{name}: needs n a multiple of 4 up to 64 and hd <= 64, "
-                         f"got n={n}, hd={hd}")
+    if not (1 <= n <= 64 and 1 <= hd <= 32):
+        raise ValueError(f"{name}: needs n <= 64 and hd <= 32, got n={n}, hd={hd}")
     for arg, t in (("q", q), ("k", k), ("v", v)):
         kernels.check_input(name, arg, t, dtype=q.dtype)
     _check_bias_labels(name, bias, labels, heads, n, bw, q.device)
@@ -154,9 +153,9 @@ def swin_attention_nhwc(qkv: torch.Tensor, bias: torch.Tensor,
                          f"heads={heads}, got {tuple(qkv.shape)}")
     b, h, w, c3 = qkv.shape
     c, n = c3 // 3, window * window
-    if h % window or w % window or not (4 <= n <= 64 and n % 4 == 0) or c // heads > 64:
-        raise ValueError(f"{name}: needs H, W multiples of window={window}, window^2 a "
-                         f"multiple of 4 up to 64 and hd <= 64, got {tuple(qkv.shape)}")
+    if h % window or w % window or not 1 <= n <= 64 or c // heads > 32:
+        raise ValueError(f"{name}: needs H, W multiples of window={window}, window^2 <= 64 "
+                         f"and hd <= 32, got {tuple(qkv.shape)}")
     kernels.check_input(name, "qkv", qkv)
     _check_bias_labels(name, bias, labels, heads, n, (h // window) * (w // window), qkv.device)
     out = torch.empty((b, h, w, c), dtype=qkv.dtype, device=qkv.device)

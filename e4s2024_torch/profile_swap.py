@@ -138,6 +138,14 @@ def main() -> None:
     for e in events[:15]:
         print(json.dumps({"kernel": e.key[:90], "calls_per_swap": e.count / args.requests,
                           "device_ms_per_swap": e.self_device_time_total / 1e3 / args.requests}))
+    if args.enhance:
+        # K5 and the rolls it took over (the fused route runs none)
+        for group in ("swin_block_kernel", "roll_cuda"):
+            hits = [e for e in events if group in e.key]
+            print(json.dumps({
+                "kernel_group": group, "calls_per_swap": sum(e.count for e in hits) / args.requests,
+                "device_ms_per_swap": sum(e.self_device_time_total for e in hits) / 1e3
+                / args.requests}))
     print(json.dumps({"mode": args.mode, "dtype": args.dtype, "enhance": args.enhance,
                       "card": torch.cuda.get_device_name(0),
                       "wall_ms_per_swap_traced": wall_ms, "device_busy_ms_per_swap": device_ms,

@@ -142,17 +142,34 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = _randn(2, 2, 64, 8, device=cuda)
     with pytest.raises(ValueError):  # bias of the wrong type
         window_attention.fused_window_attention(q, q, q, _randn(2, 64, 64, device=cuda).double())
-    with pytest.raises(ValueError):  # 7 x 7 windows: n = 49 is not a multiple of 4
-        window_attention.swin_attention_nhwc(_randn(1, 14, 14, 36, device=cuda),
-                                             _randn(2, 49, 49, device=cuda), window=7, heads=2)
+    with pytest.raises(ValueError):  # head_dim 40: the kernels pad a head to 32
+        window_attention.swin_attention_nhwc(_randn(1, 8, 8, 240, device=cuda),
+                                             _randn(2, 64, 64, device=cuda), window=8, heads=2)
+    with pytest.raises(ValueError):  # 9 x 9 windows: the kernels pad a window to 64 tokens
+        window_attention.fused_window_attention(*(_randn(1, 2, 81, 8, device=cuda),) * 3,
+                                                _randn(2, 81, 81, device=cuda))
     wts = _block_weights(12, 2, 24, cuda, torch.float32)
+    with pytest.raises(ValueError, match="packed"):  # the wrapper packs nothing itself
+        swin_block.fused_swin_block(_randn(1, 8, 8, 12, device=cuda), wts, window=8, heads=2)
+    wts["packed"] = swin_block.pack_block_weights(wts, 2)
     with pytest.raises(TypeError):  # weights made for float32, x in bfloat16
         swin_block.fused_swin_block(_randn(1, 8, 8, 12, device=cuda, dtype=torch.bfloat16), wts,
                                     window=8, heads=2)
     with pytest.raises(ValueError):  # wider than K5's tiles (C <= 192)
         swin_block.fused_swin_block(_randn(1, 8, 8, 240, device=cuda),
-                                    _block_weights(240, 6, 480, cuda, torch.float32),
-                                    window=8, heads=6)
+                                    _block_weights(240, 8, 480, cuda, torch.float32),
+                                    window=8, heads=8)
+    with pytest.raises(ValueError):  # head_dim 48 (K5 pads a head to 32)
+        swin_block.fused_swin_block(_randn(1, 8, 8, 96, device=cuda),
+                                    _block_weights(96, 2, 192, cuda, torch.float32),
+                                    window=8, heads=2)
+    with pytest.raises(ValueError):  # MLP wider than two tiles (hidden <= 384)
+        swin_block.fused_swin_block(_randn(1, 8, 8, 96, device=cuda),
+                                    _block_weights(96, 4, 480, cuda, torch.float32),
+                                    window=8, heads=4)
+    with pytest.raises(ValueError):  # a shift of the whole image or more
+        swin_block.fused_swin_block(_randn(1, 8, 8, 12, device=cuda), wts, window=8, heads=2,
+                                    shift=8)
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
 
 
@@ -194,7 +211,8 @@ def _assert_close_to_plain(got, want, rtol_bf16):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("bw,heads,n,hd", [(7, 6, 64, 30), (2 * 15, 2, 64, 6), (5, 3, 16, 8)])
+@pytest.mark.parametrize("bw,heads,n,hd", [(7, 6, 64, 30), (2 * 15, 2, 64, 6), (5, 3, 16, 8),
+                                           (3, 3, 49, 5)])
 def test_window_attention_kernel(cuda, dtype, masked, bw, heads, n, hd):
     q, k, v = (_randn(bw, heads, n, hd, device=cuda, dtype=dtype, seed=s) for s in (1, 2, 3))
     bias = 0.5 * _randn(heads, n, n, device=cuda, seed=4)
@@ -220,7 +238,7 @@ def test_swin_attention_nhwc_kernel(cuda, dtype, shift, b, h, w, c, heads):
     _assert_close_to_plain(got, want, 2.0 ** -7)
 
 
-def _block_weights(c, heads, hidden, device, dtype, seed=7):
+def _block_weights(c, heads, hidden, device, dtype, seed=7, n=64):
     g = np.random.default_rng(seed)
 
     def rnd(*shape, scale=1.0):
@@ -228,12 +246,19 @@ def _block_weights(c, heads, hidden, device, dtype, seed=7):
 
     wts = {"ln1_scale": 1 + 0.1 * rnd(c), "ln1_bias": 0.1 * rnd(c),
            "ln2_scale": 1 + 0.1 * rnd(c), "ln2_bias": 0.1 * rnd(c),
-           "bias_hnn": 0.5 * rnd(heads, 64, 64),
+           "bias_hnn": 0.5 * rnd(heads, n, n),
            "qkv_w": rnd(c, 3 * c, scale=c ** -0.5), "qkv_b": 0.1 * rnd(3 * c),
            "proj_w": rnd(c, c, scale=c ** -0.5), "proj_b": 0.1 * rnd(c),
            "fc1_w": rnd(c, hidden, scale=c ** -0.5), "fc1_b": 0.1 * rnd(hidden),
            "fc2_w": rnd(hidden, c, scale=hidden ** -0.5), "fc2_b": 0.1 * rnd(c)}
     return {k: v if k in swin_block.F32_KEYS else v.to(dtype) for k, v in wts.items()}
+
+
+def _packed_block_weights(c, heads, hidden, device, dtype, n=64):
+    """`_block_weights` with the kernel's packed copy, as K5 takes them on a card."""
+    wts = _block_weights(c, heads, hidden, device, dtype, n=n)
+    wts["packed"] = swin_block.pack_block_weights(wts, heads)
+    return wts
 
 
 @pytest.mark.cuda
@@ -242,9 +267,27 @@ def _block_weights(c, heads, hidden, device, dtype, seed=7):
 @pytest.mark.parametrize("b,h,w,c,heads,hidden", [(2, 24, 40, 12, 2, 24), (1, 16, 24, 180, 6, 360)])
 def test_swin_block_kernel(cuda, dtype, shift, b, h, w, c, heads, hidden):
     x = _randn(b, h, w, c, device=cuda, dtype=dtype)
-    wts = _block_weights(c, heads, hidden, cuda, dtype)
+    wts = _packed_block_weights(c, heads, hidden, cuda, dtype)
     labels = _labels(h, w, 8, shift, cuda) if shift else None
     got = swin_block.fused_swin_block(x, wts, labels, window=8, heads=heads)
     assert swin_block.fused_swin_block.launches == 1
     want = swin_block.fused_swin_block_plain(x, wts, labels, window=8, heads=heads)
+    _assert_close_to_plain(got, want, 2.0 ** -5)
+    # the shift inside the kernel: x as it was before the caller's roll
+    unrolled = torch.roll(x, (shift, shift), dims=(1, 2))
+    got = swin_block.fused_swin_block(unrolled, wts, labels, window=8, heads=heads, shift=shift)
+    assert swin_block.fused_swin_block.launches == 2
+    _assert_close_to_plain(got, torch.roll(want, (shift, shift), dims=(1, 2)), 2.0 ** -5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swin_block_kernel_small_window_odd_heads(cuda, dtype):
+    """4 x 4 windows (16 of the 64 token rows in use) and three heads (the
+    second pair holds one)."""
+    x = _randn(2, 8, 12, 15, device=cuda, dtype=dtype)
+    wts = _packed_block_weights(15, 3, 30, cuda, dtype, n=16)
+    labels = _labels(8, 12, 4, 2, cuda)
+    got = swin_block.fused_swin_block(x, wts, labels, window=4, heads=3, shift=2)
+    want = swin_block.fused_swin_block_plain(x, wts, labels, window=4, heads=3, shift=2)
     _assert_close_to_plain(got, want, 2.0 ** -5)
