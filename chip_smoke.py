@@ -16,7 +16,10 @@ Phases, each of which must pass or the script exits non-zero:
    give them, run each kernel and its plain PyTorch version on the same
    inputs, check the difference against a stated bound, and time kernel,
    plain version and (where one PyTorch call computes the same function)
-   that call with CUDA events;
+   that call with CUDA events; K2's and K3's cases rotate through buffer
+   sets past the L2 where one set is under 128 MB, and also log the kernel's
+   device-only time per launch from torch.profiler (`device_ms`) beside the
+   replaced kernel's (`previous_ms`);
 3. swap: build FaceSwapper at the reference's default configuration
    (1024^2 output, full IR-SE encoder, full BiSeNet, float32) with seeded
    random weights, run B=1 aligned swaps in exact and fast regional mode,
@@ -59,6 +62,9 @@ TF32X3_OPS_PER_S = 495e12 / 3
 SEED = 0
 REQUESTS = 3
 ENHANCE_REQUESTS = 2
+# K2 and K3 cases whose inputs and outputs fit in under ROTATE_BYTES, 2.5x
+# the L2, are timed over a rotation of buffer sets that moves at least that
+ROTATE_BYTES = 128 * 2 ** 20
 
 # launches per swap_aligned call at the default configuration
 # (Generator.forward: 17 StyledConvs, 8 up-conv blurs + 8 ToRGB skips,
@@ -86,6 +92,21 @@ PREVIOUS_MS = {
     ("fused_swin_block", "float32", 0): 42.8471, ("fused_swin_block", "float32", 4): 43.0100,
     ("fused_swin_block", "bfloat16", 0): 44.3271, ("fused_swin_block", "bfloat16", 4): 44.5784,
 }
+# The K2 and K3 cases' device_ms with the scalar kernels these replaced,
+# timed as phase_kernels times them now (NVIDIA H100 80GB HBM3, 700.00 W),
+# by (kernel, case label, dtype).
+PREVIOUS_DEVICE_MS = {
+    ("upfirdn2d", "blur after transposed conv, 1024^2", "float32"): 0.2528197,
+    ("upfirdn2d", "blur after transposed conv, 1024^2", "bfloat16"): 0.2301989,
+    ("upfirdn2d", "exact-mode blur, 12 regions at 256^2", "float32"): 0.7482610,
+    ("upfirdn2d", "exact-mode blur, 12 regions at 256^2", "bfloat16"): 0.6823498,
+    ("upfirdn2d", "exact-mode blur, 12 regions at 128^2", "float32"): 0.3776486,
+    ("upfirdn2d", "ToRGB skip upsample to 1024^2", "float32"): 0.0233288,
+    ("upfirdn2d", "blur3x3_tpu's case, pad (2, 1)", "float32"): 0.1199507,
+    ("regional_scale", "fast-mode StyledConv at 256^2", "float32"): 0.0317258,
+    ("regional_scale", "fast-mode StyledConv at 256^2", "bfloat16"): 0.0247762,
+    ("regional_scale", "masked ToRGB at 128^2", "float32"): 0.0229585,
+}
 # kernels whose bfloat16 instances must hold tensor-core instructions
 TENSOR_CORE_KERNELS = ("swin_block_kernel", "window_attention_kernel")
 
@@ -109,18 +130,50 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3, sets=((),)) -> float:
+    """Mean ms per call by CUDA events; call i is fn(*sets[i % len(sets)]).
+    The last len(sets) outputs stay alive, so the outputs rotate too."""
+    outs = [None] * len(sets)
+    for i in range(warmup):
+        outs[i % len(sets)] = fn(*sets[i % len(sets)])
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        outs[i % len(sets)] = fn(*sets[i % len(sets)])
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, symbol: str, iters: int = 20, sets=((),)):
+    """Mean device time per launch of the CUDA kernels whose name holds
+    `symbol`, over `iters` calls as `time_ms` makes them, from
+    torch.profiler's self device time (the wrapper's host cost is not in
+    it); None if the profiler saw no such kernel."""
+    from torch.autograd import DeviceType
+
+    outs = [fn(*s) for s in sets]
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(iters):
+            outs[i % len(sets)] = fn(*sets[i % len(sets)])
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and symbol in e.key]
+    count = sum(e.count for e in hits)
+    del outs
+    return sum(e.self_device_time_total for e in hits) / count / 1e3 if count else None
+
+
+def rotation(make, working_set_bytes: int) -> list:
+    """Buffer sets `make()` for a case, enough that one cycle through them
+    moves ROTATE_BYTES (so the caller's cold inputs are not served from the
+    50 MB L2); one where a set alone moves that much."""
+    n = max(1, -(-ROTATE_BYTES // working_set_bytes))
+    return [make() for _ in range(n)]
 
 
 def phase_build(torch):
@@ -167,15 +220,18 @@ def _tensor_core_counts(build):
 
 def _case_record(torch, name, label, kernel_fn, plain_fn, ref_fn, library_fn,
                  bytes_moved, ops, rtol, atol, ops_rate=F32_OPS_PER_S, iters=20,
-                 previous_ms=None):
+                 previous_ms=None, sets=((),), symbol=None):
     """`ops_rate` is the card's peak for the case's work: float32 outside the
     tensor cores, a third of the tf32 tensor-core rate for float32 products
     done as 3xTF32, or the bf16 tensor-core rate for bf16 products.
     `previous_ms` is the replaced kernel's time on the same case, a constant
     of this file that goes into the case's log line only: the summary line
-    holds what this run measured."""
-    got = kernel_fn()
-    ref = ref_fn()
+    holds what this run measured. The functions take the arguments of one of
+    `sets`, the buffer sets the timings rotate through; the first is checked.
+    With `symbol`, the log line also holds `device_ms`, the kernel's device
+    time per launch from the profiler."""
+    got = kernel_fn(*sets[0])
+    ref = ref_fn(*sets[0])
     torch.cuda.synchronize()
     err = float((got.float() - ref.float()).abs().max())
     bound = atol + rtol * float(ref.float().abs().max())
@@ -185,13 +241,18 @@ def _case_record(torch, name, label, kernel_fn, plain_fn, ref_fn, library_fn,
     rec = {
         "name": name, "case": label, "dtype": dtype, "shape": shape,
         "max_abs_err": err, "err_bound": bound,
-        "ms": time_ms(torch, kernel_fn, iters), "plain_ms": time_ms(torch, plain_fn, iters),
-        "library_ms": None if library_fn is None else time_ms(torch, library_fn, iters),
+        "ms": time_ms(torch, kernel_fn, iters, sets=sets),
+        "plain_ms": time_ms(torch, plain_fn, iters, sets=sets),
+        "library_ms": None if library_fn is None else time_ms(torch, library_fn, iters,
+                                                               sets=sets),
         "bound_ms": max(bytes_moved / HBM_BYTES_PER_S, ops / ops_rate) * 1e3,
         "bound_by": "bytes" if bytes_moved / HBM_BYTES_PER_S >= ops / ops_rate
         else "operations",
         "ok": ok,
     }
+    if symbol is not None:
+        rec["device_ms"] = device_ms(torch, kernel_fn, symbol, iters, sets=sets)
+        rec["buffer_sets"] = len(sets)
     if previous_ms is not None:
         rec["previous_ms"] = previous_ms
     log(f"[kernels] {json.dumps(rec)}")
@@ -230,15 +291,24 @@ def phase_kernels(torch):
     # K2: upfirdn2d in the cases the generator runs
     blur = upfirdn.make_kernel([1, 3, 3, 1])
     k_dev = (torch.flip(blur, (0, 1)) * 4).to(dev)
+
+    def depthwise(dtype):  # one library call for the x4-gain blur at pad (1, 1)
+        w = k_dev.to(dtype)
+        return lambda x: F.conv2d(x, w.expand(x.shape[1], 1, 4, 4), padding=1,
+                                  groups=x.shape[1])
+
     cases = [
         # (label, input shape, up, pad, gain, dtype, library call or None)
         ("blur after transposed conv, 1024^2", (1, 32, 1025, 1025), 1, (1, 1), 4.0,
-         torch.float32, lambda x: F.conv2d(x, k_dev.expand(x.shape[1], 1, 4, 4),
-                                           padding=1, groups=x.shape[1])),
+         torch.float32, depthwise(torch.float32)),
         ("blur after transposed conv, 1024^2", (1, 32, 1025, 1025), 1, (1, 1), 4.0,
-         torch.bfloat16, None),
+         torch.bfloat16, depthwise(torch.bfloat16)),
         ("exact-mode blur, 12 regions at 256^2", (12, 128, 257, 257), 1, (1, 1), 4.0,
-         torch.float32, None),
+         torch.float32, depthwise(torch.float32)),
+        ("exact-mode blur, 12 regions at 256^2", (12, 128, 257, 257), 1, (1, 1), 4.0,
+         torch.bfloat16, depthwise(torch.bfloat16)),
+        ("exact-mode blur, 12 regions at 128^2", (12, 256, 129, 129), 1, (1, 1), 4.0,
+         torch.float32, depthwise(torch.float32)),
         ("ToRGB skip upsample to 1024^2", (1, 3, 512, 512), 2, (2, 1), 4.0, torch.float32,
          lambda x: F.conv_transpose2d(x, (blur * 4).to(dev).expand(3, 1, 4, 4), stride=2,
                                       padding=1, groups=3)),
@@ -246,37 +316,48 @@ def phase_kernels(torch):
          None),
     ]
     for label, shape, up, pad, gain, dtype, lib in cases:
-        x = randn(*shape, dtype=dtype)
         k = blur * gain
         out_elems = (shape[0] * shape[1] * upfirdn.out_size(shape[2], 4, up, 1, pad)
                      * upfirdn.out_size(shape[3], 4, up, 1, pad))
+        es = torch.finfo(dtype).bits // 8
+        bytes_moved = (int(np.prod(shape)) + out_elems) * es
+        sets = rotation(lambda: (randn(*shape, dtype=dtype),), bytes_moved)
         rtol, atol = rel(dtype)
         records.append(_case_record(
             torch, "upfirdn2d", label,
-            lambda: upfirdn.upfirdn2d(x, k, up=up, pad=pad),
-            lambda: upfirdn.upfirdn2d_plain(x, k, up=up, pad=pad),
-            lambda: upfirdn.upfirdn2d_plain(x.float(), k, up=up, pad=pad),
-            None if lib is None else (lambda: lib(x)),
-            (x.numel() + out_elems) * x.element_size(), 2 * 16 // (up * up) * out_elems,
-            rtol, atol))
+            lambda x: upfirdn.upfirdn2d(x, k, up=up, pad=pad),
+            lambda x: upfirdn.upfirdn2d_plain(x, k, up=up, pad=pad),
+            lambda x: upfirdn.upfirdn2d_plain(x.float(), k, up=up, pad=pad),
+            lib, bytes_moved, 2 * 16 // (up * up) * out_elems, rtol, atol,
+            previous_ms=PREVIOUS_DEVICE_MS.get(("upfirdn2d", label, str(dtype)[6:])),
+            sets=sets, symbol="upfirdn2d_kernel"))
+        del sets
 
     # K3: per-pixel regional scale, fast-mode demodulation at 256^2 and the
-    # last masked ToRGB's modulation at 128^2
+    # last masked ToRGB's modulation at 128^2; library call: one einsum,
+    # seg and scales contracted over the regions first, then times x
     for label, (c, hw), dtype in [("fast-mode StyledConv at 256^2", (128, 256), torch.float32),
                                   ("fast-mode StyledConv at 256^2", (128, 256), torch.bfloat16),
                                   ("masked ToRGB at 128^2", (256, 128), torch.float32)]:
-        x = randn(1, c, hw, hw, dtype=dtype)
-        lbl = torch.randint(0, 12, (1, hw, hw), generator=gen, device=dev)
-        seg = F.one_hot(lbl, 12).permute(0, 3, 1, 2).to(dtype).contiguous()
-        s = randn(1, 12, c, dtype=dtype)
-        es = x.element_size()
+        def make():
+            lbl = torch.randint(0, 12, (1, hw, hw), generator=gen, device=dev)
+            return (randn(1, c, hw, hw, dtype=dtype),
+                    F.one_hot(lbl, 12).permute(0, 3, 1, 2).to(dtype).contiguous(),
+                    randn(1, 12, c, dtype=dtype))
+
+        es = torch.finfo(dtype).bits // 8
+        bytes_moved = (2 * c * hw * hw + 12 * hw * hw + 12 * c) * es
+        sets = rotation(make, bytes_moved)
         rtol, atol = rel(dtype)
         records.append(_case_record(
-            torch, "regional_scale", label,
-            lambda: modulate.regional_scale(x, seg, s),
-            lambda: modulate.regional_scale_plain(x, seg, s),
-            lambda: modulate.regional_scale_plain(x.float(), seg.float(), s.float()),
-            None, (2 * x.numel() + seg.numel() + s.numel()) * es, 25 * x.numel(), rtol, atol))
+            torch, "regional_scale", label, modulate.regional_scale,
+            modulate.regional_scale_plain,
+            lambda x, seg, s: modulate.regional_scale_plain(x.float(), seg.float(), s.float()),
+            lambda x, seg, s: torch.einsum("bkhw,bkc,bchw->bchw", seg, s, x),
+            bytes_moved, 25 * c * hw * hw, rtol, atol,
+            previous_ms=PREVIOUS_DEVICE_MS.get(("regional_scale", label, str(dtype)[6:])),
+            sets=sets, symbol="regional_scale_kernel"))
+        del sets
 
     records += _swin_kernel_records(torch, randn)
     failed = [r for r in records if not r["ok"]]

@@ -34,9 +34,9 @@ SIGNATURES = {
     # x, bias, out, dtype, planes, channels, inner, slope, gain, device, stream
     "e4s_fused_leaky_relu": (_P, _P, _P, _I, _LL, _I, _LL, _F, _F, _I, _P),
     # x, out, dtype, planes, in_h, in_w, out_h, out_w, up, down, pad0,
-    # taps (host float*), kh, kw, device, stream
+    # taps (host float*), kh, kw, rank1, device, stream
     "e4s_upfirdn2d": (_P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _I,
-                      ctypes.POINTER(ctypes.c_float), _I, _I, _I, _P),
+                      ctypes.POINTER(ctypes.c_float), _I, _I, _I, _I, _P),
     # x, seg, scales, out, dtype, batch, channels, regions, hw, device, stream
     "e4s_regional_scale": (_P, _P, _P, _P, _I, _LL, _I, _I, _LL, _I, _P),
     # qkv, bias, labels, out, dtype, batch, height, width, channels, heads,

@@ -13,7 +13,10 @@ Semantics (the original StyleGAN2 `upfirdn2d_native`):
   4. keep every `down`-th sample starting at 0.
 
 Layout: NCHW. The FIR kernel is a small (kh, kw) CPU tensor shared by all
-channels; its taps travel to the card by value with each launch.
+channels; its taps travel to the card by value with each launch. A rank-1
+kernel (the generator's outer([1,3,3,1]) x gain) at up 1 / down 1 goes to
+the kernel as its two 1-D factors, which it applies as a horizontal then a
+vertical pass.
 """
 
 from __future__ import annotations
@@ -58,6 +61,47 @@ def upfirdn2d_plain(x: torch.Tensor, kernel: torch.Tensor, up: int = 1,
     return F.conv2d(x, k, stride=down, groups=c)
 
 
+def rank1_taps(kernel) -> tuple[np.ndarray, np.ndarray] | None:
+    """(u, v) with kernel == outer(u, v) to within 1e-7 of its largest tap,
+    or None for a kernel that is not rank-1. kernel: (kh, kw). The factors
+    share the largest tap's magnitude evenly, so that the generator's
+    outer([1,3,3,1]) / 64 x gain (gain 1 or 4) splits into exact binary
+    fractions, ([1,3,3,1] / 8 or / 4 on both sides)."""
+    k = np.asarray(kernel, dtype=np.float64)
+    i, j = np.unravel_index(np.argmax(np.abs(k)), k.shape)
+    pivot = k[i, j]
+    if pivot == 0:
+        return None
+    root = np.sqrt(abs(pivot))
+    u, v = k[:, j] / root, k[i, :] / (root * np.sign(pivot))
+    if np.abs(np.outer(u, v) - k).max() > 1e-7 * abs(pivot):
+        return None
+    return u.astype(np.float32), v.astype(np.float32)
+
+
+_TAPS: dict = {}
+
+
+def _launch_taps(kernel: torch.Tensor, separable: bool) -> tuple[int, ctypes.Array]:
+    """(rank1, taps) for the C entry point, cached by the kernel's values:
+    the two flipped 1-D factors where the kernel is rank-1 and `separable`,
+    else the flipped kernel row-major."""
+    key = (tuple(kernel.shape), tuple(kernel.detach().reshape(-1).tolist()), separable)
+    hit = _TAPS.get(key)
+    if hit is None:
+        k = kernel.detach().float().numpy()
+        factors = rank1_taps(k) if separable else None
+        if factors is None:
+            flat = np.flip(k, (0, 1)).ravel()
+        else:
+            flat = np.concatenate([factors[0][::-1], factors[1][::-1]])
+        if len(_TAPS) >= 64:
+            _TAPS.clear()
+        hit = _TAPS[key] = (int(factors is not None),
+                            (ctypes.c_float * flat.size)(*flat.tolist()))
+    return hit
+
+
 @kernels.counted("upfirdn2d")
 def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
               pad: tuple[int, int] = (0, 0)) -> torch.Tensor:
@@ -83,12 +127,11 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
     ow = out_size(w, kw, up, down, pad)
     if oh <= 0 or ow <= 0:
         raise ValueError(f"{name}: empty output for input {h}x{w} and pad {pad}")
-    taps = torch.flip(kernel.detach().float(), (0, 1)).contiguous().numpy()
+    rank1, taps = _launch_taps(kernel, up == 1 and down == 1)
     out = x.new_empty(n, c, oh, ow)
     status = library().e4s_upfirdn2d(
         x.data_ptr(), out.data_ptr(), kernels.DTYPE_CODES[x.dtype], n * c,
-        h, w, oh, ow, up, down, pad[0],
-        taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), kh, kw,
+        h, w, oh, ow, up, down, pad[0], taps, kh, kw, rank1,
         x.device.index, kernels.stream_of(x))
     kernels.check_status(name, status)
     upfirdn2d.launches += 1

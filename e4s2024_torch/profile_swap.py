@@ -12,8 +12,9 @@ enhanced swap), warms it up, then:
    reports per stage the host time and the device time (CUDA events);
 2. traces whole swaps with torch.profiler and reports the device's busy
    share (the summed time of device-side events over wall time; overlapping
-   streams would count twice, the swap uses one) and the kernels that take
-   the most device time.
+   streams would count twice, the swap uses one), the kernels that take
+   the most device time, and the calls and device time per swap of K2
+   (`upfirdn2d_kernel`) and K3 (`regional_scale_kernel`).
 
 Prints one JSON object per line; the last line holds the totals.
 """
@@ -138,14 +139,17 @@ def main() -> None:
     for e in events[:15]:
         print(json.dumps({"kernel": e.key[:90], "calls_per_swap": e.count / args.requests,
                           "device_ms_per_swap": e.self_device_time_total / 1e3 / args.requests}))
+    # K2 and K3 over the aligned swap; with --enhance also K5 and the rolls it
+    # took over (the fused route runs none)
+    groups = ["upfirdn2d_kernel", "regional_scale_kernel"]
     if args.enhance:
-        # K5 and the rolls it took over (the fused route runs none)
-        for group in ("swin_block_kernel", "roll_cuda"):
-            hits = [e for e in events if group in e.key]
-            print(json.dumps({
-                "kernel_group": group, "calls_per_swap": sum(e.count for e in hits) / args.requests,
-                "device_ms_per_swap": sum(e.self_device_time_total for e in hits) / 1e3
-                / args.requests}))
+        groups += ["swin_block_kernel", "roll_cuda"]
+    for group in groups:
+        hits = [e for e in events if group in e.key]
+        print(json.dumps({
+            "kernel_group": group, "calls_per_swap": sum(e.count for e in hits) / args.requests,
+            "device_ms_per_swap": sum(e.self_device_time_total for e in hits) / 1e3
+            / args.requests}))
     print(json.dumps({"mode": args.mode, "dtype": args.dtype, "enhance": args.enhance,
                       "card": torch.cuda.get_device_name(0),
                       "wall_ms_per_swap_traced": wall_ms, "device_busy_ms_per_swap": device_ms,

@@ -86,6 +86,43 @@ def test_resolve_device():
             resolve_device()
 
 
+def _two_pass(x, u, v, up, down, pad):
+    """upfirdn2d with the kernel outer(u, v) as two 1-D passes in plain torch,
+    in the order K2's rank-1 path runs them: along W with v, then along H with u."""
+    n, c, h, w = x.shape
+    if up > 1:
+        stuffed = x.new_zeros(n, c, h * up, w * up)
+        stuffed[:, :, ::up, ::up] = x
+        x = stuffed
+    x = torch.nn.functional.pad(x, [pad[0], pad[1], pad[0], pad[1]])
+    kv = torch.from_numpy(np.ascontiguousarray(v[::-1]))[None, None, None].expand(c, 1, 1, -1)
+    ku = torch.from_numpy(np.ascontiguousarray(u[::-1]))[None, None, :, None].expand(c, 1, -1, 1)
+    x = torch.nn.functional.conv2d(x, kv, stride=(1, down), groups=c)
+    return torch.nn.functional.conv2d(x, ku, stride=(down, 1), groups=c)
+
+
+@pytest.mark.parametrize("gain", [1.0, 4.0])
+@pytest.mark.parametrize("up,down,pad", [(1, 1, (1, 1)), (2, 1, (2, 1)), (1, 2, (1, 1)),
+                                         (2, 2, (2, 1)), (1, 1, (-1, 2))])
+def test_upfirdn2d_rank1_detection_and_two_pass_order(up, down, pad, gain):
+    """K2's rank-1 path: the generator's taps split into two 1-D factors, a
+    horizontal then a vertical pass matches the 2-D form (float32 rounding
+    only: 1e-6 of the largest output), a perturbed kernel is not split, and
+    only up 1 / down 1 hands the kernel the factors."""
+    k = upfirdn.make_kernel([1, 3, 3, 1]) * gain
+    u, v = upfirdn.rank1_taps(k.numpy())
+    assert np.array_equal(np.outer(u, v), k.numpy())
+    x = _randn(2, 3, 21, 26)
+    want = upfirdn.upfirdn2d_plain(x, k, up, down, pad)
+    got = _two_pass(x, u, v, up, down, pad)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert upfirdn.rank1_taps((k + 0.01 * _randn(4, 4, seed=2)).numpy()) is None
+    separable = up == 1 and down == 1
+    rank1, taps = upfirdn._launch_taps(k, separable)
+    assert rank1 == int(separable) and len(taps) == (8 if separable else 16)
+
+
 # ---------------------------------------------------------------- card
 
 
@@ -116,7 +153,50 @@ def test_upfirdn2d_kernel(cuda, dtype, up, down, pad, gain, size):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,c,h,w,k", [(2, 70, 9, 31, 12), (1, 512, 4, 4, 12), (1, 3, 64, 64, 16)])
+@pytest.mark.parametrize("up,down,pad", [(1, 1, (1, 1)), (1, 1, (2, 1)), (1, 1, (-1, 2)),
+                                         (1, 1, (0, 3)), (2, 1, (2, 1)), (1, 2, (1, 1)),
+                                         (2, 2, (2, 1))])
+@pytest.mark.parametrize("perturbed", [False, True])
+@pytest.mark.parametrize("shape", [(3, 4, 23, 37), (1, 1, 3, 3)])
+def test_upfirdn2d_kernel_rank1_and_general_taps(cuda, dtype, up, down, pad, perturbed, shape):
+    """The generator's rank-1 taps (the separable path at up 1 / down 1) and
+    the same taps perturbed (the 2-D path), at an odd width; a 3 x 3 input
+    is under the four 16-byte chunks the separable path reads and takes the
+    2-D path."""
+    x = _randn(*shape, device=cuda, dtype=dtype)
+    k = upfirdn.make_kernel([1, 3, 3, 1]) * 4
+    if perturbed:
+        k = k + 0.01 * _randn(4, 4, seed=2)
+    got = upfirdn.upfirdn2d(x, k, up=up, down=down, pad=pad)
+    _assert_close_to_f32(got, upfirdn.upfirdn2d_plain(x.float(), k, up, down, pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("up,shape", [(1, (1, 3000, 9, 9)), (1, (2, 1500, 17, 17)),
+                                      (1, (1, 2, 1025, 1025)), (1, (12, 24, 65, 65)),
+                                      (1, (1, 70000, 9, 9)), (2, (1, 3, 512, 512)),
+                                      (2, (2, 3, 9, 9)), (2, (1, 70000, 4, 6))])
+def test_upfirdn2d_kernel_main_path_shapes(cuda, dtype, up, shape):
+    """Up 1: the blur after a transposed convolution at odd input widths
+    (each bfloat16 row starting 2 bytes off a 4-byte boundary every other
+    row) and thousands of small planes; up 2: the ToRGB skips' FIR upsample
+    (the 2-D path); both with more planes than a grid dimension holds."""
+    x = _randn(*shape, device=cuda, dtype=dtype)
+    k = upfirdn.make_kernel([1, 3, 3, 1])
+    if up == 1:
+        got, pad, want_hw = upfirdn.upfirdn2d(x, k * 4, pad=(1, 1)), (1, 1), (-1, -1)
+    else:
+        got, pad, want_hw = upfirdn.upsample_2x(x, k), (2, 1), shape[2:]
+    assert got.shape == (*shape[:2], shape[2] + want_hw[0], shape[3] + want_hw[1])
+    _assert_close_to_f32(got, upfirdn.upfirdn2d_plain(x.float(), k * 4, up, 1, pad))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,w,k", [(2, 70, 9, 31, 12), (1, 512, 4, 4, 12), (1, 3, 64, 64, 16),
+                                       (1, 37, 16, 20, 16), (3, 130, 5, 7, 16),
+                                       (1, 512, 8, 8, 12), (2, 129, 64, 64, 12), (1, 6, 3, 3, 1)])
 def test_regional_scale_kernel(cuda, dtype, b, c, h, w, k):
     x = _randn(b, c, h, w, device=cuda, dtype=dtype)
     seg = _one_hot(b, k, h, w, device=cuda, dtype=dtype)
