@@ -32,7 +32,16 @@ Phases, each of which must pass or the script exits non-zero:
    fused route (K5), which must run no torch.roll, hold the whole call and
    the upscaler's unclipped output against the plain versions, run the
    upscaler once through K4 and once through K6 against their plain
-   versions, then time bfloat16.
+   versions, then time bfloat16;
+5. raw: the raw-frame swap at the default stack (RetinaFace MobileNet-0.25
+   at det_size 640 and 2DFAN4 from `default_landmarker`, seeded random
+   weights; the 1024^2 float32 aligned swap) on a 1280x960 source and a
+   1920x1080 target: timed `FaceSwapper.swap` calls in exact and fast mode,
+   one `swap_all` (at least one face) and one `FullFaceSwapPipeline.swap_raw`
+   over the SwinIR-M enhancer; per call the launches (the detector runs no
+   kernel), the landmarks and the frame against the same call with the plain
+   versions forced on, and the pixels outside the pasted quad against the
+   target frame.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Float32 convolutions and matrix
@@ -723,6 +732,146 @@ def _enhance_vs_plain(torch, kernels, pipe, up, src, tgt, out, x01):
     return res
 
 
+def _outside_quad(torch, swapper, lm, shape):
+    """(H, W) bool of the target pixels the paste-back of the face with
+    landmarks `lm` leaves alone (its warped alpha is 0)."""
+    from e4s2024_torch.pipelines.alignment import (
+        as_f32, compute_transform_from_landmarks, paste_back_coefficients, quad_from_cxy,
+        warp_perspective)
+
+    s = swapper.cfg.out_size
+    quad = quad_from_cxy(*compute_transform_from_landmarks(lm))
+    alpha = warp_perspective(torch.ones(s, s, 1, device="cuda"),
+                             as_f32(paste_back_coefficients(quad, s), "cuda"), shape[:2])
+    return (alpha[..., 0] == 0).cpu().numpy()
+
+
+def _raw_call(torch, kernels, label, fn, per_call, target, tol, outside=None,
+              requests=1):
+    """Run a raw-frame entry `requests` times after a warm-up with the launch
+    counts set to 0 before and read after; check them against `per_call`,
+    then hold the frame against the same call with the plain versions on the
+    card and, where `outside` is given, the untouched pixels against the
+    target. Returns the call's record."""
+    fn()  # warm-up: cuDNN plans, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    latencies, out = [], None
+    for _ in range(requests):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    launches = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict.fromkeys(launches, 0)
+    want.update({k: requests * v for k, v in per_call.items()})
+    if launches != want:
+        raise AssertionError(f"raw {label}: launches {launches}, expected {want}")
+    if out.shape != target.shape or out.dtype != np.uint8:
+        raise AssertionError(f"raw {label}: bad output {out.shape} {out.dtype}")
+    with kernels.plain_versions_on_card():
+        plain = fn()
+    diff = np.abs(plain.astype(np.int16) - out.astype(np.int16))
+    rec = {"call": label, "requests": requests, "latency_ms": latencies,
+           "peak_mem_gib": peak_gib, "launches": launches,
+           "launches_per_call": {k: v // requests for k, v in launches.items() if v},
+           "vs_plain_max_abs": int(diff.max()), "vs_plain_mean_abs": float(diff.mean()),
+           "tolerance_max_abs": tol[0], "tolerance_mean_abs": tol[1],
+           "changed_share": float((out != target).any(-1).mean())}
+    ok = rec["vs_plain_max_abs"] <= tol[0] and rec["vs_plain_mean_abs"] <= tol[1] \
+        and rec["changed_share"] > 0
+    if outside is not None:
+        rec["outside_quad_pixels"] = int(outside.sum())
+        rec["outside_quad_equal"] = bool(np.array_equal(out[outside], target[outside]))
+        # (a quad from random landmarks may cover the whole frame: the count
+        # is logged)
+        ok = ok and rec["outside_quad_equal"]
+    log(f"[raw] {json.dumps(rec)}")
+    if not ok:
+        raise AssertionError(f"raw {label}: failed its checks: {rec}")
+    return rec
+
+
+def phase_raw(torch, rgi_sd, bise_sd, sr_sd):
+    """The raw-frame swap at the default stack, float32. Returns the
+    records of its calls."""
+    import warnings
+
+    from e4s2024_torch import kernels
+    from e4s2024_torch.models.swinir import SwinIREnhancer, SwinIRUpscaler
+    from e4s2024_torch.pipelines.detect import default_landmarker
+    from e4s2024_torch.pipelines.full_swap import (
+        FullFaceSwapPipeline, FullSwapConfig, SwapComponents)
+    from e4s2024_torch.pipelines.swap import FaceSwapper, SwapConfig
+    from e4s2024_torch.profile_swap import raw_frames
+
+    src, tgt = raw_frames()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        landmarker = default_landmarker(device="cuda")
+    log(f"[raw] landmark stack built in {time.perf_counter() - t0:.1f} s; weights: "
+        + ("; ".join(str(w.message) for w in caught) or "reference checkpoints"))
+
+    # the landmarks: the detection stack holds no kernel, so the plain
+    # versions must leave them bit for bit as they are
+    lms = [landmarker(src), landmarker(tgt)]
+    with kernels.plain_versions_on_card():
+        plain_lms = [landmarker(src), landmarker(tgt)]
+    if any(a is None for a in lms) or not all(np.array_equal(a, b)
+                                              for a, b in zip(lms, plain_lms)):
+        raise AssertionError("raw: the landmarks differ with the plain versions on the card")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    landmarker(tgt)
+    log(f"[raw] landmarks of the target frame: {(time.perf_counter() - t0) * 1e3:.2f} ms "
+        f"(detect + FAN, host clock)")
+
+    records, swapper = {}, None
+    for mode in ("exact", "fast"):
+        swapper = FaceSwapper(rgi_sd, bise_sd, SwapConfig(regional_mode=mode),
+                              landmark_fn=landmarker, device="cuda")
+        outside = _outside_quad(torch, swapper, lms[1], tgt.shape)
+        records[f"swap {mode}"] = _raw_call(
+            torch, kernels, f"swap {mode}", lambda: swapper.swap(src, tgt), PER_CALL[mode],
+            tgt, (2, 0.05), outside, REQUESTS)
+        if mode == "exact":
+            # swap_all: how many faces went through the batched swap
+            sizes, swap_crops = [], swapper._swap_crops
+
+            def counted(s, t, fn):
+                sizes.append(t.shape[0])
+                return swap_crops(s, t, fn)
+
+            swapper._swap_crops = counted
+            rec = _raw_call(torch, kernels, "swap_all exact",
+                            lambda: swapper.swap_all(src, tgt), PER_CALL[mode], tgt, (2, 0.05))
+            del swapper._swap_crops
+            if not sizes or min(sizes) < 1:
+                raise AssertionError(f"raw swap_all: no face was swapped ({sizes})")
+            rec["faces_swapped"] = sizes[-1]
+            log(f"[raw] swap_all swapped {sizes[-1]} face(s)")
+            records["swap_all exact"] = rec
+
+            up = SwinIRUpscaler(sr_sd, device="cuda")
+            pipe = FullFaceSwapPipeline(
+                swapper, SwapComponents(enhancers={"swinir": SwinIREnhancer(up).enhance_aligned}),
+                FullSwapConfig(enhancement_mode="swinir"))
+            per_call = dict(PER_CALL["exact"], fused_swin_block=SWIN_BLOCKS)
+            # the enhanced swap's phase-4 tolerance: the float enhanced crop
+            # is truncated to uint8, so a one-level straddle may flip a parse
+            # pixel; the image mean stays within 0.5 levels
+            records["swap_raw exact"] = _raw_call(
+                torch, kernels, "swap_raw exact", lambda: pipe.swap_raw(src, tgt), per_call,
+                tgt, (255, 0.5), outside)
+            del up, pipe
+        del swapper
+        torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -751,12 +900,16 @@ def main() -> int:
     sr_sd = _swinir_state_dict(torch)
     enhance = phase_enhance(torch, rgi_sd, bise_sd, sr_sd, "float32")
     phase_enhance(torch, rgi_sd, bise_sd, sr_sd, "bfloat16")
+    raw = phase_raw(torch, rgi_sd, bise_sd, sr_sd)
 
-    # launches: K1-K3 on the aligned swaps of phase 3, K5 on the enhanced
-    # swaps, K4 and K6 on the upscaler runs of their routes
+    # launches: K1-K3 on the aligned swaps of phase 3 and the raw-frame
+    # calls of phase 5, K5 on the enhanced swaps of phases 4 and 5, K4 and
+    # K6 on the upscaler runs of their routes
     launches = {name: sum(main_path[m]["launches"][name] for m in main_path)
+                + sum(r["launches"].get(name, 0) for r in raw.values())
                 for name in PER_CALL["exact"]}
-    launches["fused_swin_block"] = enhance["launches"]["fused_swin_block"]
+    launches["fused_swin_block"] = (enhance["launches"]["fused_swin_block"]
+                                    + raw["swap_raw exact"]["launches"]["fused_swin_block"])
     for route in ("nhwc", "windowed"):
         kernel = ROUTE_KERNEL[route]
         launches[kernel] = enhance["routes"][route]["launches"][kernel]

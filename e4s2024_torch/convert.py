@@ -10,9 +10,13 @@ The inverse of the layout rules of the JAX package's checkpoint converter
   const input (1, 4, 4, C)    -> (1, C, 4, 4)
   LayerNorm scale, bias       -> weight, bias
 
-The functions take nested dicts of numpy (or array-like) leaves and return
-flat {reference name: torch.Tensor} dicts that the port's modules load with
-`load_state_dict(strict=True)`.
+The `*_from_jax` functions take nested dicts of numpy (or array-like)
+leaves and return flat {reference name: torch.Tensor} dicts that the port's
+modules load with `load_state_dict(strict=True)`.
+
+Reference checkpoints themselves load natively: `load_reference_checkpoint`
+reads a torch file into such a dict, and `fold_bgr_mean_into_stem` gives a
+RetinaFace checkpoint the RGB input the JAX package's converter gives it.
 """
 
 from __future__ import annotations
@@ -199,4 +203,127 @@ def swinir_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     _conv(params["conv_before_upsample"], "conv_before_upsample.0", out)
     for name in ("conv_up1", "conv_up2", "conv_hr", "conv_last"):
         _conv(params[name], name, out)
+    return out
+
+
+def _conv_bn_seq(p: Mapping, name: str, out: dict, conv_idx: int = 0, bn_idx: int = 1) -> None:
+    _conv(p["conv"], f"{name}.{conv_idx}", out)
+    _bn(p["bn"], f"{name}.{bn_idx}", out)
+
+
+def retinaface_state_dict_from_jax(params: Mapping, cfg: Mapping) -> dict[str, torch.Tensor]:
+    """RetinaFace params -> port RetinaFace state dict in the reference's
+    names (the inverse of the layout of `convert_retinaface`; the stem
+    stays as the params hold it, folded for RGB input)."""
+    out: dict[str, torch.Tensor] = {}
+    body = params["body"]
+    if cfg["backbone"] == "mobilenet":
+        _conv_bn_seq(body["stem"], "body.stage1.0", out)
+        names = ([f"s1_{i}" for i in range(5)], [f"s2_{i}" for i in range(6)],
+                 [f"s3_{i}" for i in range(2)])
+        for stage, (first, keys) in enumerate(zip((1, 0, 0), names), start=1):
+            for i, key in enumerate(keys):
+                name = f"body.stage{stage}.{i + first}"
+                _conv_bn_seq(body[key]["dw"], name, out)
+                _conv_bn_seq(body[key]["pw"], name, out, 3, 4)
+    else:
+        _conv(body["conv1"], "body.conv1", out)
+        _bn(body["bn1"], "body.bn1", out)
+        for li, n in enumerate((3, 4, 6, 3)):
+            for bi in range(n):
+                blk, name = body[f"layer{li + 1}_{bi}"], f"body.layer{li + 1}.{bi}"
+                for j in (1, 2, 3):
+                    _conv(blk[f"conv{j}"], f"{name}.conv{j}", out)
+                    _bn(blk[f"bn{j}"], f"{name}.bn{j}", out)
+                if "down_conv" in blk:
+                    _conv(blk["down_conv"], f"{name}.downsample.0", out)
+                    _bn(blk["down_bn"], f"{name}.downsample.1", out)
+    for key in ("output1", "output2", "output3", "merge1", "merge2"):
+        _conv_bn_seq(params["fpn"][key], f"fpn.{key}", out)
+    for i in range(1, 4):
+        for key, ref in (("conv3x3", "conv3X3"), ("conv5x5_1", "conv5X5_1"),
+                         ("conv5x5_2", "conv5X5_2"), ("conv7x7_2", "conv7X7_2"),
+                         ("conv7x7_3", "conv7x7_3")):
+            _conv_bn_seq(params[f"ssh{i}"][key], f"ssh{i}.{ref}", out)
+    for i in range(3):
+        _conv(params[f"class_head{i}"], f"ClassHead.{i}.conv1x1", out)
+        _conv(params[f"bbox_head{i}"], f"BboxHead.{i}.conv1x1", out)
+        _conv(params[f"landmark_head{i}"], f"LandmarkHead.{i}.conv1x1", out)
+    return out
+
+
+def _fan_convblock(p: Mapping, name: str, out: dict) -> None:
+    for j in (1, 2, 3):
+        _bn(p[f"bn{j}"], f"{name}.bn{j}", out)
+        _conv(p[f"conv{j}"], f"{name}.conv{j}", out)
+    if "down_conv" in p:
+        _bn(p["down_bn"], f"{name}.downsample.0", out)
+        _conv(p["down_conv"], f"{name}.downsample.2", out)
+
+
+def fan_state_dict_from_jax(params: Mapping, num_modules: int = 4,
+                            depth: int = 4) -> dict[str, torch.Tensor]:
+    """FAN params -> port FAN state dict in face-alignment's names (the
+    inverse of the layout of `convert_fan`)."""
+    out: dict[str, torch.Tensor] = {}
+    _conv(params["conv1"], "conv1", out)
+    _bn(params["bn1"], "bn1", out)
+    for key in ("conv2", "conv3", "conv4"):
+        _fan_convblock(params[key], key, out)
+    for i in range(num_modules):
+        hg = params[f"m{i}"]
+        for level in range(1, depth + 1):
+            for b in ("b1", "b2", "b3"):
+                _fan_convblock(hg[f"{b}_{level}"], f"m{i}.{b}_{level}", out)
+        _fan_convblock(hg["b2_plus_1"], f"m{i}.b2_plus_1", out)
+        _fan_convblock(params[f"top_m_{i}"], f"top_m_{i}", out)
+        _conv(params[f"conv_last{i}"], f"conv_last{i}", out)
+        _bn(params[f"bn_end{i}"], f"bn_end{i}", out)
+        _conv(params[f"l{i}"], f"l{i}", out)
+        if i < num_modules - 1:
+            _conv(params[f"bl{i}"], f"bl{i}", out)
+            _conv(params[f"al{i}"], f"al{i}", out)
+    return out
+
+
+def load_reference_checkpoint(path: str,
+                              envelopes=("state_dict", "params_ema", "params")
+                              ) -> dict[str, torch.Tensor]:
+    """A reference torch checkpoint (.pt / .pth) as a flat {name: tensor}
+    dict for `load_state_dict`: loaded with `weights_only=True`, the first
+    envelope found unwrapped (tensors beside it, such as E4S's
+    `latent_avg`, kept under their own names), DDP's `module.` prefix
+    stripped, and BatchNorm's `num_batches_tracked` counters (which the
+    port's frozen BNs do not keep) dropped."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    sd, extras = obj, {}
+    for name in envelopes:
+        if isinstance(obj, dict) and isinstance(obj.get(name), dict):
+            sd = obj[name]
+            extras = {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
+            break
+    out = {}
+    for k, v in list(sd.items()) + list(extras.items()):
+        k = k[len("module."):] if k.startswith("module.") else k
+        if isinstance(v, torch.Tensor) and not k.endswith("num_batches_tracked"):
+            out.setdefault(k, v)
+    return out
+
+
+def fold_bgr_mean_into_stem(state_dict: Mapping, cfg: Mapping,
+                            mean_bgr=(104.0, 117.0, 123.0)) -> dict[str, torch.Tensor]:
+    """A reference RetinaFace state dict (trained on BGR minus
+    (104, 117, 123), retinaface_detection.py:72-73) for RGB [0, 255] input,
+    as the JAX package's converter makes it (`_fold_bgr_mean_into_stem`):
+    the stem's input channels flipped and conv(W, mean) added to its BN's
+    running mean. Inside the image this equals the reference; on the stem
+    output's first rows and columns, where the reference's zero padding of
+    (BGR - mean) differs from a zero padding of the raw image, it does not."""
+    conv, bn = (("body.stage1.0.0", "body.stage1.0.1") if cfg["backbone"] == "mobilenet"
+                else ("body.conv1", "body.bn1"))
+    out = dict(state_dict)
+    w = state_dict[f"{conv}.weight"]  # (O, I, kh, kw), I in BGR order
+    shift = torch.einsum("oihw,i->o", w, torch.tensor(mean_bgr, dtype=w.dtype))
+    out[f"{conv}.weight"] = w.flip(1).contiguous()
+    out[f"{bn}.running_mean"] = state_dict[f"{bn}.running_mean"] + shift
     return out

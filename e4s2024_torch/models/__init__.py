@@ -1,1 +1,1 @@
-"""Networks of the aligned-crop swap, with the original reference's state-dict names."""
+"""Networks of the port, with the original reference's state-dict names."""

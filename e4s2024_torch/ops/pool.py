@@ -1,4 +1,4 @@
-"""Max pooling with torch MaxPool2d semantics (`e4s2024_tpu/ops/pool.py`)."""
+"""Pooling with torch semantics (`e4s2024_tpu/ops/pool.py`): max and average."""
 
 from __future__ import annotations
 
@@ -11,3 +11,9 @@ def max_pool2d(x: torch.Tensor, window: int = 2, stride: int | None = None,
     """MaxPool2d(window, stride, padding) on NCHW, floor mode; padded
     samples never win (they count as -inf)."""
     return F.max_pool2d(x, window, stride or window, padding)
+
+
+def avg_pool2d(x: torch.Tensor, window: int = 2, stride: int | None = None) -> torch.Tensor:
+    """torch F.avg_pool2d(window, stride) on NCHW, no padding (the JAX
+    package's `avg_pool2d`)."""
+    return F.avg_pool2d(x, window, stride or window)

@@ -1,1 +1,1 @@
-"""The face-swap pipeline: mask merge and the aligned-crop swap."""
+"""The face-swap pipelines: mask merge, the aligned-crop and raw-frame swaps, detection, alignment and landmark smoothing."""

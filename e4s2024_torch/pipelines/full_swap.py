@@ -11,6 +11,9 @@ staged form on pre-aligned crops:
      enhanced crop to uint8 as the JAX swapper does,
   3. packaging to uint8.
 
+`swap_raw` and `swap_raw_multi` run it from raw frames through
+`FaceSwapper.swap` / `swap_all`.
+
 Ported so far: the enhancers (the SwinIR enhancer of `models/swinir.py`, or
 any callable with its contract). Not yet ported, and refused with
 NotImplementedError when asked for: the pose driver, the recolorer, the
@@ -101,6 +104,18 @@ class FullFaceSwapPipeline:
         fused form, as the SwinIR enhancer has none)."""
         return torch.stack([self(s, t)["image"]
                             for s, t in zip(source_crops255, target_crops255)])
+
+    def swap_raw(self, source_img, target_img):
+        """Raw-frame entry: detection and alignment (the swapper's landmark
+        stack), the enhanced swap on the crops, perspective paste-back — the
+        reference's `FaceSwap.face_swap_pipeline` from unaligned images.
+        Returns the (H, W, 3) uint8 numpy frame."""
+        return self.swapper.swap(source_img, target_img, swap_fn=self.swap_batch)
+
+    def swap_raw_multi(self, source_img, target_img, **kw):
+        """The source identity onto every face detected in the target frame,
+        each through the enhanced swap (`FaceSwapper.swap_all`)."""
+        return self.swapper.swap_all(source_img, target_img, swap_fn=self.swap_batch, **kw)
 
     def _package(self, swapped, driven, result, intermediates: bool = False) -> dict:
         out = {"image": torch.clamp(swapped, 0, 255).to(torch.uint8)}

@@ -1,8 +1,8 @@
-"""Aligned-crop face swap, the E4S pipeline (reference
-Face_swap_with_two_imgs.py:796 `face_swap_pipeline`).
+"""Face swap, the E4S pipeline (reference Face_swap_with_two_imgs.py:796
+`face_swap_pipeline`).
 
-Counterpart of `FaceSwapper.swap_aligned` in
-`e4s2024_tpu/pipelines/swap.py`, in its staged form:
+Counterpart of `FaceSwapper` in `e4s2024_tpu/pipelines/swap.py`. The
+aligned-crop swap `swap_aligned` runs in its staged form:
 
   1. BiSeNet parse of the driven and target crops -> 12-class maps,
   2. RGI style vectors for both,
@@ -13,12 +13,18 @@ Counterpart of `FaceSwapper.swap_aligned` in
 
 Stages 1-2 run on the (driven, target) pair as one batch, stages 3-5 on the
 swaps. The nets run in `compute_dtype`; compositing runs in float32.
+
+The raw-frame entries `swap` and `swap_all` take unaligned uint8 frames:
+68-point landmarks (the `landmark_fn` hook, or the RetinaFace + FAN stack of
+`pipelines/detect.py`), the FFHQ quad and its crop on the device, the
+aligned swap, and a perspective paste-back into the target frame.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
-from typing import Mapping
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
@@ -31,6 +37,10 @@ from e4s2024_torch.models.rgi import RGINet
 from e4s2024_torch.ops.blend import laplacian_pyramid_blend_planar, soft_erosion_planar
 from e4s2024_torch.ops.morphology import dilation_planar
 from e4s2024_torch.ops.resize import resize_bilinear
+from e4s2024_torch.pipelines import detect
+from e4s2024_torch.pipelines.alignment import (
+    as_f32, compute_transform_from_landmarks, crop_quad, paste_back_coefficients,
+    quad_from_cxy, warp_perspective)
 from e4s2024_torch.pipelines.mask_merge import swap_comp_style_vector, swap_head_mask
 
 _SEG_MEAN = (0.485, 0.456, 0.406)
@@ -69,13 +79,17 @@ class FaceSwapper:
         `G.*`, `MLPs.*`, `latent_avg`), as tensors or numpy arrays.
       bisenet_state_dict: BiSeNet weights (`cp.*`, `ffm.*`, `conv_out*`).
       config: SwapConfig.
+      landmark_fn: (H, W, 3) uint8 frame -> (68, 2) landmarks or None, for
+        the raw-frame entries; None builds `detect.default_landmarker` on
+        first use.
       device: "cuda" (the default) or "cpu".
       encoder_num_units: IR-SE body depth; the reference's (3, 4, 14, 3)
         unless a small test configuration cuts it.
     """
 
     def __init__(self, rgi_state_dict: Mapping, bisenet_state_dict: Mapping,
-                 config: SwapConfig = SwapConfig(), *, device=None,
+                 config: SwapConfig = SwapConfig(),
+                 landmark_fn: Callable | None = None, *, device=None,
                  encoder_num_units: tuple = (3, 4, 14, 3)):
         if config.regional_mode not in ("exact", "fast"):
             raise ValueError(f"regional_mode must be 'exact' or 'fast', "
@@ -83,6 +97,7 @@ class FaceSwapper:
         if config.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
         self.cfg = config
+        self.landmark_fn = landmark_fn
         self.device = resolve_device(device)
         self.dtype = _DTYPES[config.compute_dtype]
         self.rgi = RGINet(num_seg_cls=config.num_seg_cls, out_size=config.out_size,
@@ -217,3 +232,111 @@ class FaceSwapper:
             b = d.shape[0]
             masks, sv = self._parse_invert(torch.cat([d, t], dim=0))
             return self._merge_synth_composite(masks[:b], masks[b:], sv[:b], sv[b:], t)
+
+    # ---------------- raw frames ----------------
+
+    def ensure_landmark_fn(self):
+        """The active landmark callable; builds the RetinaFace + FAN stack
+        (`detect.default_landmarker`, on this swapper's device) on first use
+        when none was supplied."""
+        if self.landmark_fn is None:
+            self.landmark_fn = detect.default_landmarker(device=self.device)
+        return self.landmark_fn
+
+    @staticmethod
+    def _hook_input(fn, img, frame: torch.Tensor):
+        """What a landmark hook reads: the package's detector the frame
+        already uploaded, any other hook the frame as it was given."""
+        return frame if isinstance(fn, detect.FaceLandmarkDetector) else img
+
+    def _crop(self, frame: torch.Tensor, quads) -> torch.Tensor:
+        """Aligned crops (..., S, S, 3) float32 of quads (..., 4, 2) (float64
+        frame coordinates, as float32 quad + 0.5 like the JAX package)."""
+        return crop_quad(frame, as_f32(np.asarray(quads) + 0.5, self.device), self.cfg.out_size)
+
+    def _swap_crops(self, src: torch.Tensor, tgt: torch.Tensor, swap_fn) -> torch.Tensor:
+        """(B, S, S, 3) float crops -> swapped (B, S, S, 3) float32."""
+        if swap_fn is not None:
+            return torch.as_tensor(swap_fn(src, tgt)).to(self.device).float()
+        return self.swap_aligned(src, tgt)["image"].float()
+
+    def _paste_back(self, frame: torch.Tensor, swapped: torch.Tensor, quads) -> np.ndarray:
+        """Alpha-composite each swapped crop over the frame through its quad's
+        inverse perspective (reference :264-279); the alpha is the warped
+        all-ones plane, gathered with the crop as a fourth channel."""
+        s = self.cfg.out_size
+        out = frame.float()
+        ones = torch.ones(s, s, 1, device=self.device)
+        for crop, quad in zip(swapped, quads):
+            coeffs = as_f32(paste_back_coefficients(quad, s), self.device)
+            warped = warp_perspective(torch.cat([crop, ones], dim=-1), coeffs, frame.shape[:2])
+            alpha = warped[..., 3:]
+            out = warped[..., :3] * alpha + out * (1.0 - alpha)
+        return torch.clamp(out, 0, 255).to(torch.uint8).cpu().numpy()
+
+    def swap(self, source_img, target_img, swap_fn=None) -> np.ndarray:
+        """Swap from raw frames: landmarks, FFHQ crop, aligned swap, paste-back.
+
+        source/target: (H, W, 3) uint8 frames. Returns the target frame with
+        the swapped face pasted back, (H, W, 3) uint8 numpy. `swap_fn`
+        optionally replaces the aligned swap with another
+        (B, S, S, 3) -> (B, S, S, 3) uint8 swap, e.g.
+        FullFaceSwapPipeline.swap_batch."""
+        landmark_fn = self.ensure_landmark_fn()
+        crops, quads, frame = [], [], None
+        for name, img in (("source", source_img), ("target", target_img)):
+            frame = detect.upload(img, self.device)
+            lm = landmark_fn(self._hook_input(landmark_fn, img, frame))
+            if lm is None:
+                raise ValueError(f"no face found in the {name} image (no detection "
+                                 "cleared the confidence threshold)")
+            quads.append(quad_from_cxy(*compute_transform_from_landmarks(lm)))
+            crops.append(self._crop(frame, quads[-1])[None])
+        swapped = self._swap_crops(crops[0], crops[1], swap_fn)
+        return self._paste_back(frame, swapped, quads[1:])
+
+    def swap_all(self, source_img, target_img, swap_fn=None, max_faces: int = 8,
+                 min_score: float = 0.5) -> np.ndarray:
+        """The source identity onto every face detected in the target frame:
+        all target crops go through the aligned swap as one batch, then are
+        pasted back face by face.
+
+        Needs a landmark stack with `detect_all` (the package's
+        FaceLandmarkDetector); a single-face hook raises. Faces below
+        `min_score` are skipped, at most `max_faces` (by score) are swapped,
+        and a face with degenerate landmarks is skipped with a warning.
+        Returns the frame unchanged when no face is found."""
+        landmark_fn = self.ensure_landmark_fn()
+        if not hasattr(landmark_fn, "detect_all"):
+            raise RuntimeError(
+                "swap_all needs the detector stack (pipelines.detect.FaceLandmarkDetector); "
+                "the configured landmark_fn hook only yields one face — use swap() or "
+                "supply a FaceLandmarkDetector")
+        src = detect.upload(source_img, self.device)
+        src_lm = landmark_fn(self._hook_input(landmark_fn, source_img, src))
+        if src_lm is None:
+            raise ValueError("no face detected in the source image")
+        src_crop = self._crop(src, quad_from_cxy(*compute_transform_from_landmarks(src_lm)))
+
+        frame = detect.upload(target_img, self.device)
+        _, scores, _, lm68 = landmark_fn.detect_all(
+            self._hook_input(landmark_fn, target_img, frame))
+        order = np.argsort(np.asarray(scores))[::-1][:max_faces]
+        order = [i for i in order if float(scores[i]) >= min_score]
+        if not order:
+            return np.asarray(target_img, np.uint8)
+        quads = []
+        for i in order:
+            # one degenerate detection in a group photo must not abort the
+            # good swaps: skip it (warn) and keep going
+            try:
+                quads.append(quad_from_cxy(*compute_transform_from_landmarks(
+                    np.asarray(lm68[i]))))
+            except ValueError as e:
+                warnings.warn(f"skipping face {i}: {e}")
+        if not quads:
+            raise ValueError(f"all {len(order)} detected faces had degenerate landmarks "
+                             "— nothing usable to swap")
+        tgt_batch = self._crop(frame, np.stack(quads))
+        swapped = self._swap_crops(src_crop[None].expand_as(tgt_batch), tgt_batch, swap_fn)
+        return self._paste_back(frame, swapped, quads)

@@ -1,15 +1,19 @@
-"""Where the time of one aligned swap goes, on a CUDA card.
+"""Where the time of one swap goes, on a CUDA card.
 
     python -m e4s2024_torch.profile_swap [--mode exact|fast] [--dtype float32|bfloat16]
-                                         [--enhance]
+                                         [--enhance | --raw]
 
 Builds FaceSwapper at the default configuration (1024^2 output, full
 encoder and parser) with seeded random weights (with --enhance, inside
 FullFaceSwapPipeline with a full-width SwinIR-M "swinir" enhancer, the
-enhanced swap), warms it up, then:
+enhanced swap; with --raw, over the default RetinaFace + 2DFAN4 landmark
+stack with seeded random weights, the raw-frame swap `FaceSwapper.swap` of
+a 1280x960 source onto a 1920x1080 target), warms it up, then:
 
 1. runs the swap's stages one by one, each between two synchronisations, and
-   reports per stage the host time and the device time (CUDA events);
+   reports per stage the host time and the device time (CUDA events); the
+   raw swap's stages are upload, detect (x2), FAN (x2), crop (x2), the
+   aligned swap and the paste-back;
 2. traces whole swaps with torch.profiler and reports the device's busy
    share (the summed time of device-side events over wall time; overlapping
    streams would count twice, the swap uses one), the kernels that take
@@ -34,6 +38,8 @@ from e4s2024_torch.models.bisenet import BiSeNet
 from e4s2024_torch.models.rgi import RGINet
 from e4s2024_torch.models.swinir import SwinIR, SwinIREnhancer, SwinIRUpscaler
 from e4s2024_torch.pipelines.full_swap import FullFaceSwapPipeline, FullSwapConfig, SwapComponents
+from e4s2024_torch.pipelines import detect
+from e4s2024_torch.pipelines.alignment import compute_transform_from_landmarks, quad_from_cxy
 from e4s2024_torch.pipelines.mask_merge import swap_comp_style_vector, swap_head_mask
 from e4s2024_torch.pipelines.swap import FaceSwapper, SwapConfig
 
@@ -78,6 +84,36 @@ def staged_swap(sw: FaceSwapper, driven, target, stages: dict):
             image.float(), t_pm1, merged["mask"], merged["hole_mask"]))
 
 
+def raw_frames():
+    """A seeded smooth 1280x960 source photo and 1920x1080 target frame
+    (coarse 40-pixel blocks plus a little noise, uint8), also chip_smoke.py's
+    phase-5 frames."""
+    rng = np.random.default_rng(2)
+    out = []
+    for h, w in ((960, 1280), (1080, 1920)):
+        img = np.kron(rng.random((h // 40, w // 40, 3)), np.ones((40, 40, 1))) * 200
+        out.append((img + rng.random(img.shape) * 55).astype(np.uint8))
+    return out
+
+
+def staged_raw_swap(sw: FaceSwapper, source, target, stages: dict):
+    """FaceSwapper.swap with the package's landmark stack, stage by stage
+    (same calls, same order)."""
+    stack = sw.landmark_fn
+    crops, quads, frame = [], [], None
+    for img in (source, target):
+        frame = _timed(stages, "upload (2 uint8 frames)", lambda: detect.upload(img, sw.device))
+        boxes = _timed(stages, "detect (RetinaFace, 2 frames)",
+                       lambda: stack.detector.detect(frame)[0])
+        lm = _timed(stages, "landmarks (FAN, 2 faces)",
+                    lambda: stack.landmarker.landmarks(frame, boxes[:1])[0])
+        quads.append(quad_from_cxy(*compute_transform_from_landmarks(lm)))
+        crops.append(_timed(stages, "crop (2 quads)", lambda: sw._crop(frame, quads[-1])[None]))
+    swapped = _timed(stages, "aligned swap", lambda: sw._swap_crops(crops[0], crops[1], None))
+    return _timed(stages, "paste-back (1920x1080)",
+                  lambda: sw._paste_back(frame, swapped, quads[1:]))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", default="exact", choices=("exact", "fast"))
@@ -86,7 +122,11 @@ def main() -> None:
     ap.add_argument("--trace", default="", help="write a chrome trace here")
     ap.add_argument("--enhance", action="store_true",
                     help="the SwinIR-enhanced swap (FullFaceSwapPipeline)")
+    ap.add_argument("--raw", action="store_true",
+                    help="the raw-frame swap (FaceSwapper.swap with the default landmark stack)")
     args = ap.parse_args()
+    if args.enhance and args.raw:
+        ap.error("--enhance and --raw profile different swaps; pick one")
     if not torch.cuda.is_available():
         raise SystemExit("profile_swap: no CUDA device is available")
     torch.backends.cudnn.allow_tf32 = False
@@ -105,6 +145,10 @@ def main() -> None:
         pipe = FullFaceSwapPipeline(sw, SwapComponents(enhancers={"swinir": enhance}),
                                     FullSwapConfig(enhancement_mode="swinir"))
         swap = lambda: pipe(driven[0], target[0])  # noqa: E731
+    if args.raw:
+        sw.landmark_fn = detect.default_landmarker()
+        source, frame = raw_frames()
+        swap = lambda: sw.swap(source, frame)  # noqa: E731
     for _ in range(2):
         swap()
     torch.cuda.synchronize()
@@ -116,7 +160,10 @@ def main() -> None:
             with torch.inference_mode():
                 d = _timed(stages, "enhance (SwinIR-M x4, resize back)",
                            lambda: enhance(torch.from_numpy(driven).cuda().float()))
-        staged_swap(sw, d, target, stages)
+        if args.raw:
+            staged_raw_swap(sw, source, frame, stages)
+        else:
+            staged_swap(sw, d, target, stages)
     for name, rec in stages.items():
         print(json.dumps({"stage": name, "host_ms": rec["host_ms"] / args.requests,
                           "device_ms": rec["device_ms"] / args.requests}))
@@ -151,6 +198,7 @@ def main() -> None:
             "device_ms_per_swap": sum(e.self_device_time_total for e in hits) / 1e3
             / args.requests}))
     print(json.dumps({"mode": args.mode, "dtype": args.dtype, "enhance": args.enhance,
+                      "raw": args.raw,
                       "card": torch.cuda.get_device_name(0),
                       "wall_ms_per_swap_traced": wall_ms, "device_busy_ms_per_swap": device_ms,
                       "device_busy_share": device_ms / wall_ms}))
