@@ -41,7 +41,17 @@ Phases, each of which must pass or the script exits non-zero:
    over the SwinIR-M enhancer; per call the launches (the detector runs no
    kernel), the landmarks and the frame against the same call with the plain
    versions forced on, and the pixels outside the pasted quad against the
-   target frame.
+   target frame;
+6. video: `FaceSwapVideoPipeline` over the phase-3 float32 exact swapper
+   and the default landmark stack, with the three loss nets at their
+   published widths (seeded random weights), on an 8-frame 1280x720 clip
+   with PTI 4 steps and stitching 2 steps: the frames, the tunes' losses,
+   the launches of K1-K3 and of their backward kernels (which PTI and
+   stitching run), the clip against the same clip with the plain versions
+   forced on from the same starting weights, the pixels outside every
+   pasted quad, and one PTI step's time and peak memory at frames_per_chunk
+   2, 4 and 8. Phase 2 also holds each K1-K3 backward, at the 1024^2
+   generator's shapes, against torch.autograd.grad of the plain version.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Float32 convolutions and matrix
@@ -116,9 +126,20 @@ PREVIOUS_DEVICE_MS = {
     ("regional_scale", "fast-mode StyledConv at 256^2", "bfloat16"): 0.0247762,
     ("regional_scale", "masked ToRGB at 128^2", "float32"): 0.0229585,
 }
+# phase 6: the tunes' steps, and the chunk sizes of the PTI-step sweep
+VIDEO_PTI_STEPS, VIDEO_STITCHING_STEPS = 4, 2
+CHUNK_SWEEP = (2, 4, 8)
+# the later stitching steps' losses, kernels against plain versions: the
+# first step's gradient is rounding noise on the random-weight clip (see
+# phase_video; 3.8e-3 to 5.8e-3 at step 2 in three runs on an H100)
+STITCH_LATER_REL = 2e-2
+BACKWARD = ("fused_leaky_relu_backward", "upfirdn2d_backward", "regional_scale_backward")
+
 # kernels whose bfloat16 instances must hold tensor-core instructions
 TENSOR_CORE_KERNELS = ("swin_block_kernel", "window_attention_kernel")
 
+# the backward kernels replace no TPU kernel (the JAX package differentiates
+# XLA ops); `replaces` names the TPU kernel whose gradient they compute
 KERNEL_INFO = {
     "fused_leaky_relu": ("e4s2024_torch/kernels/csrc/fused_act.cu",
                          "e4s2024_tpu/ops/pallas/kernels.py:58"),
@@ -126,6 +147,12 @@ KERNEL_INFO = {
                   "e4s2024_tpu/ops/pallas/kernels.py:96"),
     "regional_scale": ("e4s2024_torch/kernels/csrc/regional_scale.cu",
                        "e4s2024_tpu/ops/pallas/kernels.py:142"),
+    "fused_leaky_relu_backward": ("e4s2024_torch/kernels/csrc/fused_act.cu",
+                                  "e4s2024_tpu/ops/pallas/kernels.py:58"),
+    "upfirdn2d_backward": ("e4s2024_torch/kernels/csrc/upfirdn2d.cu",
+                           "e4s2024_tpu/ops/pallas/kernels.py:96"),
+    "regional_scale_backward": ("e4s2024_torch/kernels/csrc/regional_scale.cu",
+                                "e4s2024_tpu/ops/pallas/kernels.py:142"),
     "swin_attention_nhwc": ("e4s2024_torch/kernels/csrc/window_attention.cu",
                             "e4s2024_tpu/ops/window_attention.py:131"),
     "fused_swin_block": ("e4s2024_torch/kernels/csrc/swin_block.cu",
@@ -229,7 +256,7 @@ def _tensor_core_counts(build):
 
 def _case_record(torch, name, label, kernel_fn, plain_fn, ref_fn, library_fn,
                  bytes_moved, ops, rtol, atol, ops_rate=F32_OPS_PER_S, iters=20,
-                 previous_ms=None, sets=((),), symbol=None):
+                 previous_ms=None, sets=((),), symbol=None, library_err=False):
     """`ops_rate` is the card's peak for the case's work: float32 outside the
     tensor cores, a third of the tf32 tensor-core rate for float32 products
     done as 3xTF32, or the bf16 tensor-core rate for bf16 products.
@@ -238,7 +265,8 @@ def _case_record(torch, name, label, kernel_fn, plain_fn, ref_fn, library_fn,
     holds what this run measured. The functions take the arguments of one of
     `sets`, the buffer sets the timings rotate through; the first is checked.
     With `symbol`, the log line also holds `device_ms`, the kernel's device
-    time per launch from the profiler."""
+    time per launch from the profiler; with `library_err`, the library
+    call's largest difference from `ref_fn`."""
     got = kernel_fn(*sets[0])
     ref = ref_fn(*sets[0])
     torch.cuda.synchronize()
@@ -259,6 +287,10 @@ def _case_record(torch, name, label, kernel_fn, plain_fn, ref_fn, library_fn,
         else "operations",
         "ok": ok,
     }
+    if library_fn is not None and library_err:
+        lib = library_fn(*sets[0])
+        rec["library_max_abs_err"] = float((lib.float() - ref_fn(*sets[0]).float()).abs().max())
+        del lib
     if symbol is not None:
         rec["device_ms"] = device_ms(torch, kernel_fn, symbol, iters, sets=sets)
         rec["buffer_sets"] = len(sets)
@@ -368,10 +400,116 @@ def phase_kernels(torch):
             sets=sets, symbol="regional_scale_kernel"))
         del sets
 
+    records += _backward_records(torch, randn, gen)
     records += _swin_kernel_records(torch, randn)
     failed = [r for r in records if not r["ok"]]
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
+    return records
+
+
+def _backward_records(torch, randn, gen):
+    """K1-K3's backwards at the 1024^2 generator's shapes, float32, each
+    kernel's gradient held against torch.autograd.grad of the plain
+    forward on the same inputs (summation order only: 1e-5 of the largest
+    element). K2's cases: the blur after each transposed convolution, the
+    ToRGB skip's up-2 upsample (its gradient a down-2 pass with pads
+    (1, 1)), down-2 resampling (an up-2 pass). K3's: grad_x = K3 on
+    (grad, seg, scales); grad_scales, a plain batched product, is timed
+    and checked in its own log line. Library yardsticks: the depthwise
+    convolution (or its transpose) that computes the same gradient, and
+    the forward's einsum for K3."""
+    import torch.nn.functional as F
+
+    from e4s2024_torch.ops import fused_act, modulate, upfirdn
+
+    dev = torch.device("cuda")
+    records = []
+
+    def autograd_plain(plain, x, g, *rest):
+        xr = x.detach().requires_grad_(True)
+        return torch.autograd.grad(plain(xr, *rest), xr, g)[0]
+
+    # K1: the last StyledConv at 1024^2; the backward reads the output
+    x, b = randn(1, 32, 1024, 1024), randn(32)
+    g = randn(1, 32, 1024, 1024)
+    out = fused_act.fused_leaky_relu_plain(x, b)
+    records.append(_case_record(
+        torch, "fused_leaky_relu_backward", "StyledConv at 1024^2",
+        lambda: fused_act.fused_leaky_relu_backward(g, out),
+        lambda: fused_act.fused_leaky_relu_backward_plain(g, out),
+        lambda: autograd_plain(fused_act.fused_leaky_relu_plain, x, g, b),
+        None, 3 * x.numel() * 4, 2 * x.numel(), 1e-5, 1e-5,
+        symbol="fused_leaky_relu_backward_kernel"))
+    del x, g, out
+
+    blur = upfirdn.make_kernel([1, 3, 3, 1])
+
+    def depthwise(k, c):
+        return k.to(dev).expand(c, 1, *k.shape)
+
+    cases = [
+        # (label, input shape, up, down, pad, gain, library call on g)
+        ("blur after transposed conv, 1024^2", (1, 32, 1025, 1025), 1, 1, (1, 1), 4.0,
+         lambda g: F.conv2d(g, depthwise(blur * 4, 32), padding=2, groups=32)),
+        ("ToRGB skip upsample to 1024^2", (1, 3, 512, 512), 2, 1, (2, 1), 4.0,
+         lambda g: F.conv2d(g, depthwise(blur * 4, 3), stride=2, padding=1, groups=3)),
+        ("down-2 resampling of 1024^2", (1, 3, 1024, 1024), 1, 2, (1, 1), 1.0,
+         lambda g: F.conv_transpose2d(g, depthwise(torch.flip(blur, (0, 1)), 3), stride=2,
+                                      padding=1, groups=3)),
+    ]
+    for label, shape, up, down, pad, gain, lib in cases:
+        k = blur * gain
+        oh = upfirdn.out_size(shape[2], 4, up, down, pad)
+        ow = upfirdn.out_size(shape[3], 4, up, down, pad)
+        g_shape = (*shape[:2], oh, ow)
+        in_elems, out_elems = int(np.prod(shape)), int(np.prod(g_shape))
+        bytes_moved = (in_elems + out_elems) * 4
+        sets = rotation(lambda: (randn(*shape), randn(*g_shape)), bytes_moved)
+        records.append(_case_record(
+            torch, "upfirdn2d_backward", label,
+            lambda x, g: upfirdn.upfirdn2d_backward(g, k, up, down, pad, shape[2:]),
+            lambda x, g: upfirdn.upfirdn2d_backward_plain(g, k, up, down, pad, shape[2:]),
+            lambda x, g: autograd_plain(upfirdn.upfirdn2d_plain, x, g, k, up, down, pad),
+            lambda x, g: lib(g), bytes_moved, 2 * 16 // (down * down) * in_elems,
+            1e-5, 1e-5, sets=sets, symbol="upfirdn2d_kernel", library_err=True))
+        del sets
+
+    for label, (c, hw) in [("fast-mode StyledConv at 256^2", (128, 256)),
+                           ("masked ToRGB at 128^2", (256, 128))]:
+        def make():
+            lbl = torch.randint(0, 12, (1, hw, hw), generator=gen, device=dev)
+            return (randn(1, c, hw, hw),
+                    F.one_hot(lbl, 12).permute(0, 3, 1, 2).float().contiguous(),
+                    randn(1, 12, c), randn(1, c, hw, hw))
+
+        bytes_moved = (2 * c * hw * hw + 12 * hw * hw + 12 * c) * 4
+        sets = rotation(make, bytes_moved)
+        records.append(_case_record(
+            torch, "regional_scale_backward", label,
+            lambda x, seg, s, g: modulate.regional_scale_backward(g, seg, s),
+            lambda x, seg, s, g: modulate.regional_scale_plain(g, seg, s),
+            lambda x, seg, s, g: autograd_plain(
+                lambda t, seg_, s_: modulate.regional_scale_plain(t, seg_, s_), x, g, seg, s),
+            lambda x, seg, s, g: torch.einsum("bkhw,bkc,bchw->bchw", seg, s, g),
+            bytes_moved, 25 * c * hw * hw, 1e-5, 1e-5, sets=sets,
+            symbol="regional_scale_kernel", library_err=True))
+        x, seg, s, g = sets[0]
+        sr = s.detach().requires_grad_(True)
+        want = torch.autograd.grad(modulate.regional_scale_plain(x, seg, sr), sr, g)[0]
+        got = modulate.regional_scale_grad_scales(g, x, seg)
+        err = float((got - want).abs().max())
+        rec = {"name": "regional_scale grad_scales (plain batched product)", "case": label,
+               "max_abs_err": err, "err_bound": 1e-4 * float(want.abs().max()),
+               "ms": time_ms(torch, modulate.regional_scale_grad_scales, sets=[
+                   (gg, xx, sg) for xx, sg, _, gg in sets]),
+               "bound_ms": max((2 * c * hw * hw + 12 * hw * hw) * 4 / HBM_BYTES_PER_S,
+                               (2 * 12 + 1) * c * hw * hw / F32_OPS_PER_S) * 1e3}
+        log(f"[kernels] {json.dumps(rec)}")
+        if err > rec["err_bound"]:
+            raise AssertionError(f"grad_scales disagrees with autograd: {rec}")
+        del sets, x, seg, s, g
+    torch.cuda.empty_cache()
     return records
 
 
@@ -732,15 +870,16 @@ def _enhance_vs_plain(torch, kernels, pipe, up, src, tgt, out, x01):
     return res
 
 
-def _outside_quad(torch, swapper, lm, shape):
+def _outside_quad(torch, swapper, lm, shape, quad=None):
     """(H, W) bool of the target pixels the paste-back of the face with
-    landmarks `lm` leaves alone (its warped alpha is 0)."""
+    landmarks `lm` (or of `quad`) leaves alone (its warped alpha is 0)."""
     from e4s2024_torch.pipelines.alignment import (
         as_f32, compute_transform_from_landmarks, paste_back_coefficients, quad_from_cxy,
         warp_perspective)
 
     s = swapper.cfg.out_size
-    quad = quad_from_cxy(*compute_transform_from_landmarks(lm))
+    if quad is None:
+        quad = quad_from_cxy(*compute_transform_from_landmarks(lm))
     alpha = warp_perspective(torch.ones(s, s, 1, device="cuda"),
                              as_f32(paste_back_coefficients(quad, s), "cuda"), shape[:2])
     return (alpha[..., 0] == 0).cpu().numpy()
@@ -872,6 +1011,151 @@ def phase_raw(torch, rgi_sd, bise_sd, sr_sd):
     return records
 
 
+def _video_run(torch, kernels, pipe, rgi_sd, source, frames):
+    """One clip through the pipeline from the weights `rgi_sd` (the pipeline
+    writes its tuned weights back into the swapper), with the launch
+    counts set to 0 just before and read just after. Returns (frames,
+    record)."""
+    from e4s2024_torch.pipelines.video import StageTimer
+
+    pipe.swapper.rgi.load_state_dict(rgi_sd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = StageTimer()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = pipe(source, frames, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    hist = pipe.histories
+    steps = {"pti": len(hist["pti"]), "stitching": len(hist["stitching"])}
+    rec = {"clip_s": wall, "s_per_frame": wall / len(frames), "stage_ms": timer.times,
+           "ms_per_pti_step": timer.times["pti_tune"] / steps["pti"],
+           "ms_per_stitching_step": timer.times["stitching_tune"] / steps["stitching"],
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches, "losses": {k: [m["loss"] for m in v] for k, v in hist.items()}}
+    return outs, rec, hist
+
+
+def phase_video(torch, rgi_sd, bise_sd):
+    """The video swap at the default stack, float32 exact: a warm-up clip
+    (one step of each tune), the measured clip, the same clip with the
+    plain versions forced on the card, then one PTI step at each chunk size
+    of CHUNK_SWEEP. Returns the measured clip's record."""
+    import warnings
+
+    from e4s2024_torch import kernels
+    from e4s2024_torch.pipelines.detect import default_landmarker
+    from e4s2024_torch.pipelines.swap import FaceSwapper, SwapConfig
+    from e4s2024_torch.pipelines.video import FaceSwapVideoPipeline, VideoSwapConfig
+    from e4s2024_torch.profile_swap import loss_nets, video_clip
+    from e4s2024_torch.training.pti import PTICoach, PTIConfig, StitchingConfig
+
+    source, frames = video_clip()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # random landmark weights, said in phase 5
+        landmarker = default_landmarker(device="cuda")
+    swapper = FaceSwapper(rgi_sd, bise_sd, SwapConfig(), landmark_fn=landmarker, device="cuda")
+    nets = loss_nets("cuda")
+
+    def pipeline(pti_steps, stitching_steps):
+        cfg = VideoSwapConfig(pti=PTIConfig(max_pti_steps=pti_steps),
+                              stitching=StitchingConfig(max_steps=stitching_steps),
+                              frames_per_batch=4)
+        return FaceSwapVideoPipeline(swapper, cfg, loss_params=nets)
+
+    t0 = time.perf_counter()
+    _video_run(torch, kernels, pipeline(1, 1), rgi_sd, source, frames)  # warm-up
+    log(f"[video] warm-up clip (1 PTI step, 1 stitching step): "
+        f"{time.perf_counter() - t0:.1f} s")
+    pipe = pipeline(VIDEO_PTI_STEPS, VIDEO_STITCHING_STEPS)
+    outs, rec, hist = _video_run(torch, kernels, pipe, rgi_sd, source, frames)
+    with kernels.plain_versions_on_card():
+        plain, prec, phist = _video_run(torch, kernels, pipe, rgi_sd, source, frames)
+
+    problems = []
+    if len(outs) != len(frames) or any(o.shape != f.shape or o.dtype != np.uint8
+                                       for o, f in zip(outs, frames)):
+        problems.append(f"bad frames {[(o.shape, o.dtype) for o in outs]}")
+    losses = rec["losses"]
+    if not all(np.isfinite(v) for vs in losses.values() for v in vs):
+        problems.append("non-finite losses")
+    if not min(losses["pti"]) < losses["pti"][0]:
+        problems.append("PTI's lowest loss is not below its first")
+    for name in ("fused_leaky_relu", "upfirdn2d", "regional_scale"):
+        if rec["launches"][name] == 0 or rec["launches"][name + "_backward"] == 0:
+            problems.append(f"{name} or its backward never launched: {rec['launches']}")
+    if any(prec["launches"].values()):
+        problems.append(f"the plain run launched kernels: {prec['launches']}")
+    # against the plain versions: the per-step total losses, frames,
+    # untouched pixels. Stitching's content target is the tuned generator's
+    # own synthesis, so its first gradient is only the border ring's (empty
+    # where the random parse has no background): rounding noise, which
+    # Adam turns into lr-sized steps of either sign; from its second step
+    # on, the stitching losses of two runs are held to STITCH_LATER_REL.
+    def rel_diffs(name):
+        return [abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1e-12)
+                for a, b in zip(hist[name], phist[name])]
+
+    pti_rel, stitch_rel = rel_diffs("pti"), rel_diffs("stitching")
+    rel = max(pti_rel + stitch_rel[:1])
+    diff = np.abs(np.stack(outs).astype(np.int16) - np.stack(plain).astype(np.int16))
+    _, quads = pipe.align_frames(frames)
+    outside = [_outside_quad(torch, swapper, None, f.shape, q) for f, q in zip(frames, quads)]
+    outside_equal = all(np.array_equal(o[m], f[m]) for o, f, m in zip(outs, frames, outside))
+    limits = {"loss_rel": 1e-3, "stitching_later_loss_rel": STITCH_LATER_REL,
+              "frame_mean_abs": 0.5}
+    rec.update({
+        "frames": len(frames), "frame_hw": list(frames[0].shape[:2]),
+        "pti_steps": VIDEO_PTI_STEPS, "stitching_steps": VIDEO_STITCHING_STEPS,
+        "vs_plain_loss_max_rel": rel, "vs_plain_pti_loss_rel": pti_rel,
+        "vs_plain_stitching_loss_rel": stitch_rel,
+        "stitching_metrics": hist["stitching"], "vs_plain_max_abs": int(diff.max()),
+        "vs_plain_mean_abs": float(diff.mean()), "limits": limits,
+        "plain_clip_s": prec["clip_s"],
+        "outside_quad_pixels": [int(m.sum()) for m in outside],
+        "outside_quad_equal": outside_equal,
+        "changed_share": float((np.stack(outs) != np.stack(frames)).any(-1).mean())})
+    if (rel > limits["loss_rel"] or max(stitch_rel) > STITCH_LATER_REL
+            or rec["vs_plain_mean_abs"] > limits["frame_mean_abs"]):
+        problems.append("the clip differs from the plain-version clip beyond the limits")
+    if not outside_equal or rec["changed_share"] == 0:
+        problems.append("pixels outside the pasted quads changed, or none inside did")
+    log(f"[video] {json.dumps(rec)}")
+    log(f"[video] plain versions: {json.dumps(prec)}")
+
+    # one PTI step over the 8 crops at each chunk size: time and peak memory
+    with torch.no_grad():
+        crops, _ = pipe.align_frames(frames)
+        labels = pipe.parse_frames(crops)
+        sv = pipe.style_vectors(crops, labels)
+    u8 = torch.clamp(torch.round(crops), 0, 255).to(torch.uint8)
+    for chunk in CHUNK_SWEEP:
+        coach = PTICoach(swapper.rgi, nets, PTIConfig(frames_per_chunk=chunk))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        sweep = {"frames_per_chunk": chunk, "frames": len(frames), "base_mem_gib": base}
+        t0 = time.perf_counter()
+        try:
+            coach.tune(None, u8, labels.to(torch.uint8), sv, u8, steps=1)
+            torch.cuda.synchronize()
+            sweep.update(pti_step_ms=(time.perf_counter() - t0) * 1e3,
+                         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        except torch.cuda.OutOfMemoryError:  # the sweep's point is where memory ends
+            sweep.update(out_of_memory=True,
+                         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del coach
+        log(f"[video] pti step {json.dumps(sweep)}")
+    del swapper, pipe, nets, crops, labels, sv, u8
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"video: {problems}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -901,13 +1185,17 @@ def main() -> int:
     enhance = phase_enhance(torch, rgi_sd, bise_sd, sr_sd, "float32")
     phase_enhance(torch, rgi_sd, bise_sd, sr_sd, "bfloat16")
     raw = phase_raw(torch, rgi_sd, bise_sd, sr_sd)
+    video = phase_video(torch, rgi_sd, bise_sd)
 
-    # launches: K1-K3 on the aligned swaps of phase 3 and the raw-frame
-    # calls of phase 5, K5 on the enhanced swaps of phases 4 and 5, K4 and
-    # K6 on the upscaler runs of their routes
+    # launches: K1-K3 on the aligned swaps of phase 3, the raw-frame calls of
+    # phase 5 and the video clip of phase 6 (which alone runs the backward
+    # kernels), K5 on the enhanced swaps of phases 4 and 5, K4 and K6 on the
+    # upscaler runs of their routes
     launches = {name: sum(main_path[m]["launches"][name] for m in main_path)
                 + sum(r["launches"].get(name, 0) for r in raw.values())
+                + video["launches"][name]
                 for name in PER_CALL["exact"]}
+    launches.update({name: video["launches"][name] for name in BACKWARD})
     launches["fused_swin_block"] = (enhance["launches"]["fused_swin_block"]
                                     + raw["swap_raw exact"]["launches"]["fused_swin_block"])
     for route in ("nhwc", "windowed"):

@@ -15,13 +15,17 @@ leaves and return flat {reference name: torch.Tensor} dicts that the port's
 modules load with `load_state_dict(strict=True)`.
 
 Reference checkpoints themselves load natively: `load_reference_checkpoint`
-reads a torch file into such a dict, and `fold_bgr_mean_into_stem` gives a
-RetinaFace checkpoint the RGB input the JAX package's converter gives it.
+reads a torch file into such a dict, `drop_generator_buffers` takes out the
+fixed buffers a reference generator carries and the port keeps as
+constants, and `fold_bgr_mean_into_stem` gives a RetinaFace checkpoint the
+RGB input the JAX package's converter gives it.
 """
 
 from __future__ import annotations
 
 from typing import Mapping
+
+import re
 
 import numpy as np
 import torch
@@ -162,6 +166,65 @@ def bisenet_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     for head in ("conv_out", "conv_out16", "conv_out32"):
         _convbnrelu(params[head]["conv"], f"{head}.conv", out)
         _conv(params[head]["conv_out"], f"{head}.conv_out", out)
+    return out
+
+
+def arcface_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """ArcFaceBackbone params -> port ArcFaceBackbone state dict in the
+    reference's names (the inverse of the layout of `convert_arcface`)."""
+    out: dict[str, torch.Tensor] = {}
+    _conv(params["input_conv"], "input_layer.0", out)
+    _bn(params["input_bn"], "input_layer.1", out)
+    out["input_layer.2.weight"] = _t(params["input_prelu"]["alpha"])
+    for i in range(_count(params, "body_")):
+        u, name = params[f"body_{i}"], f"body.{i}"
+        _bn(u["bn0"], f"{name}.res_layer.0", out)
+        _conv(u["conv1"], f"{name}.res_layer.1", out)
+        out[f"{name}.res_layer.2.weight"] = _t(u["prelu"]["alpha"])
+        _conv(u["conv2"], f"{name}.res_layer.3", out)
+        _bn(u["bn2"], f"{name}.res_layer.4", out)
+        _conv(u["se"]["fc1"], f"{name}.res_layer.5.fc1", out)
+        _conv(u["se"]["fc2"], f"{name}.res_layer.5.fc2", out)
+        if "shortcut_conv" in u:
+            _conv(u["shortcut_conv"], f"{name}.shortcut_layer.0", out)
+            _bn(u["shortcut_bn"], f"{name}.shortcut_layer.1", out)
+    _bn(params["output_bn"], "output_layer.0", out)
+    out["output_layer.3.weight"] = _t(np.asarray(params["output_fc_kernel"]).T)
+    out["output_layer.3.bias"] = _t(params["output_fc_bias"])
+    _bn(params["output_bn1d"], "output_layer.4", out)
+    return out
+
+
+def lpips_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """LPIPS params -> port LPIPS state dict (`features.{0,3,6,8,10}`,
+    `lin{i}.model.1.weight`; the inverse of the layout of `convert_lpips`)."""
+    out: dict[str, torch.Tensor] = {}
+    for idx in (0, 3, 6, 8, 10):
+        _conv(params["net"][f"conv{idx}"], f"features.{idx}", out)
+    for i in range(_count(params, "lin_")):
+        out[f"lin{i}.model.1.weight"] = _t(np.asarray(params[f"lin_{i}"]).reshape(1, -1, 1, 1))
+    return out
+
+
+def _unet_conv2(p: Mapping, name: str, out: dict) -> None:
+    for j in (1, 2):
+        _conv(p[f"conv{j}"], f"{name}.conv{j}.0", out)
+        _bn(p[f"bn{j}"], f"{name}.conv{j}.1", out)
+
+
+def parsing_unet_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """ParsingUNet params -> port ParsingUNet state dict (the inverse of the
+    layout of `convert_parsing_unet`: the flax transposed-convolution
+    kernels flipped back into torch's (in, out, kh, kw))."""
+    out: dict[str, torch.Tensor] = {}
+    for blk in ("conv1", "conv2", "conv3", "conv4", "center"):
+        _unet_conv2(params[blk], blk, out)
+    for blk in ("up_concat4", "up_concat3", "up_concat2", "up_concat1"):
+        up = params[blk]["up"]
+        out[f"{blk}.up.weight"] = _t(np.asarray(up["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
+        out[f"{blk}.up.bias"] = _t(up["bias"])
+        _unet_conv2(params[blk]["conv"], f"{blk}.conv", out)
+    _conv(params["final"], "final", out)
     return out
 
 
@@ -326,4 +389,35 @@ def fold_bgr_mean_into_stem(state_dict: Mapping, cfg: Mapping,
     shift = torch.einsum("oihw,i->o", w, torch.tensor(mean_bgr, dtype=w.dtype))
     out[f"{conv}.weight"] = w.flip(1).contiguous()
     out[f"{bn}.running_mean"] = state_dict[f"{bn}.running_mean"] + shift
+    return out
+
+
+_NOISE_KEY = re.compile(r"(^|\.)noises\.noise_\d+$")
+_FIR_KEY = re.compile(r"\.(blur|upsample)\.kernel$")
+
+
+def drop_generator_buffers(state_dict: Mapping) -> dict:
+    """A reference E4S state dict without the generator's fixed buffers,
+    which the port does not keep as state (`models/stylegan2.py`): the
+    registered noise maps `*.noises.noise_*` (the port, like the JAX
+    package, synthesises without noise) and the FIR `kernel` of every blur
+    and upsample. Each dropped FIR kernel must equal the constant the port
+    uses in its place, make_kernel([1, 3, 3, 1]) x 4 (both run at factor 2);
+    a differing one raises. Every other key is kept, for a strict load."""
+    from e4s2024_torch.models.stylegan2 import BLUR_TAPS
+    from e4s2024_torch.ops.upfirdn import make_kernel
+
+    fir = make_kernel(BLUR_TAPS) * 4
+    out = {}
+    for key, value in state_dict.items():
+        if _NOISE_KEY.search(key):
+            continue
+        if _FIR_KEY.search(key):
+            taps = torch.as_tensor(np.asarray(value) if not isinstance(value, torch.Tensor)
+                                   else value).float().cpu()
+            if taps.shape != fir.shape or not torch.allclose(taps, fir, rtol=0.0, atol=1e-7):
+                raise ValueError(f"{key}: FIR taps {taps.tolist()} differ from the "
+                                 f"generator's constant {fir.tolist()}")
+            continue
+        out[key] = value
     return out

@@ -9,6 +9,12 @@ the CPU and launches its kernel for a tensor on a CUDA device; it never falls
 back from one to the other. Each wrapper carries an integer `launches`
 counter that grows by one per kernel launch, so a run can show that it went
 through the kernels.
+
+K1-K3 are differentiable: each wrapper is a `torch.autograd.Function`
+whose backward launches kernels too, counted under names of their own
+(`fused_leaky_relu_backward`, `upfirdn2d_backward`,
+`regional_scale_backward`). K4-K6 are forward-only and refuse inputs that
+require grad.
 """
 
 from __future__ import annotations
@@ -70,8 +76,10 @@ def use_plain(t: torch.Tensor) -> bool:
 
 
 def check_input(kernel: str, arg: str, t: torch.Tensor,
-                dtype: torch.dtype | None = None) -> None:
-    """Raise unless `t` is a contiguous CUDA tensor the kernel takes."""
+                dtype: torch.dtype | None = None, differentiable: bool = False) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor the kernel takes; an
+    input that requires grad only where the kernel has a backward for it
+    (`differentiable`)."""
     if t.device.type != "cuda":
         raise ValueError(f"{kernel}: {arg} must be on a CUDA device, got {t.device}")
     if t.dtype not in DTYPE_CODES:
@@ -80,7 +88,7 @@ def check_input(kernel: str, arg: str, t: torch.Tensor,
         raise TypeError(f"{kernel}: {arg} is {t.dtype}, expected {dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {arg} must be contiguous")
-    if t.requires_grad and torch.is_grad_enabled():
+    if not differentiable and t.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(f"{kernel}: the kernel is forward-only; {arg} "
                            "requires grad")
 

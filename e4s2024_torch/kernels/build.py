@@ -33,6 +33,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     # x, bias, out, dtype, planes, channels, inner, slope, gain, device, stream
     "e4s_fused_leaky_relu": (_P, _P, _P, _I, _LL, _I, _LL, _F, _F, _I, _P),
+    # grad, out, grad_x, dtype, elements, slope, gain, device, stream
+    "e4s_fused_leaky_relu_backward": (_P, _P, _P, _I, _LL, _F, _F, _I, _P),
     # x, out, dtype, planes, in_h, in_w, out_h, out_w, up, down, pad0,
     # taps (host float*), kh, kw, rank1, device, stream
     "e4s_upfirdn2d": (_P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _I,

@@ -15,6 +15,14 @@
 // size; grid x covers a plane in chunks of 1024 elements, four coalesced
 // elements per thread. Fusing the pass into the producing convolution's
 // epilogue, which would save the whole round trip, is later work.
+//
+// Backward (no TPU counterpart: the JAX package differentiates XLA ops):
+// grad_x = grad * (out >= 0 ? gain : slope * gain), from the saved output,
+// whose sign is that of x + bias (gain and slope are positive). One flat
+// pass, four coalesced elements per thread in a grid-stride loop; the bias
+// gradient, grad_x summed over every axis but 1, is the caller's reduction.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -57,6 +65,35 @@ void launch(const void* x, const void* bias, void* out, long long planes,
       static_cast<T*>(out), planes, channels, inner, slope, gain);
 }
 
+template <typename T>
+__global__ void fused_leaky_relu_backward_kernel(const T* __restrict__ grad,
+                                                 const T* __restrict__ out,
+                                                 T* __restrict__ grad_x, long long n,
+                                                 float slope_gain, float gain) {
+  const long long chunk = static_cast<long long>(kThreads) * kPerThread;
+  const long long step = static_cast<long long>(gridDim.x) * chunk;
+  for (long long first = blockIdx.x * chunk + threadIdx.x; first < n; first += step) {
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const long long i = first + static_cast<long long>(k) * kThreads;
+      if (i < n) {
+        const float g = e4s::load_f32(grad + i);
+        e4s::store_f32(grad_x + i, g * (e4s::load_f32(out + i) >= 0.f ? gain : slope_gain));
+      }
+    }
+  }
+}
+
+template <typename T>
+void launch_backward(const void* grad, const void* out, void* grad_x, long long n,
+                     float slope, float gain, cudaStream_t stream) {
+  const long long chunk = static_cast<long long>(kThreads) * kPerThread;
+  const long long blocks = std::min((n + chunk - 1) / chunk, 1LL << 30);
+  fused_leaky_relu_backward_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(grad), static_cast<const T*>(out), static_cast<T*>(grad_x), n,
+      slope * gain, gain);
+}
+
 }  // namespace
 
 // bias may be null (no bias); otherwise it holds `channels` float32 values.
@@ -74,6 +111,28 @@ extern "C" int e4s_fused_leaky_relu(const void* x, const void* bias, void* out,
       break;
     case e4s::kBFloat16:
       launch<__nv_bfloat16>(x, bias, out, planes, channels, inner, slope, gain, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return e4s::launch_status();
+}
+
+// grad, out and grad_x: n contiguous elements of one dtype; grad_x may not
+// alias the others.
+extern "C" int e4s_fused_leaky_relu_backward(const void* grad, const void* out, void* grad_x,
+                                             int dtype, long long n, float slope, float gain,
+                                             int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case e4s::kFloat32:
+      launch_backward<float>(grad, out, grad_x, n, slope, gain, s);
+      break;
+    case e4s::kBFloat16:
+      launch_backward<__nv_bfloat16>(grad, out, grad_x, n, slope, gain, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

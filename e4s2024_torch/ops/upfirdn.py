@@ -17,6 +17,10 @@ channels; its taps travel to the card by value with each launch. A rank-1
 kernel (the generator's outer([1,3,3,1]) x gain) at up 1 / down 1 goes to
 the kernel as its two 1-D factors, which it applies as a horizontal then a
 vertical pass.
+
+The input gradient is upfirdn2d itself: the flipped kernel, up and down
+swapped, pads from `_backward_pads`; on the card it launches K2 again,
+counted as `upfirdn2d_backward`.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import ctypes
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from e4s2024_torch import kernels
 from e4s2024_torch.kernels.build import library
@@ -45,20 +50,44 @@ def out_size(size: int, kernel_size: int, up: int, down: int,
     return (size * up + pad[0] + pad[1] - kernel_size) // down + 1
 
 
-def upfirdn2d_plain(x: torch.Tensor, kernel: torch.Tensor, up: int = 1,
-                    down: int = 1, pad: tuple[int, int] = (0, 0)) -> torch.Tensor:
-    """Zero-stuff, `F.pad`, then one depthwise `F.conv2d` with the flipped
-    kernel. x: (N, C, H, W); kernel: (kh, kw)."""
+def _upfirdn2d_native(x: torch.Tensor, kernel: torch.Tensor, up: int, down: int,
+                      pad_y: tuple[int, int], pad_x: tuple[int, int]) -> torch.Tensor:
+    """Zero-stuff, `F.pad` (per axis; negative pads crop), then one
+    depthwise `F.conv2d` with the flipped kernel."""
     n, c, h, w = x.shape
     if up > 1:
         stuffed = x.new_zeros(n, c, h * up, w * up)
         stuffed[:, :, ::up, ::up] = x
         x = stuffed
-    p0, p1 = pad
-    x = F.pad(x, [p0, p1, p0, p1])
+    x = F.pad(x, [pad_x[0], pad_x[1], pad_y[0], pad_y[1]])
     k = torch.flip(kernel, (0, 1)).to(device=x.device, dtype=x.dtype)
     k = k[None, None].expand(c, 1, *k.shape)
     return F.conv2d(x, k, stride=down, groups=c)
+
+
+def upfirdn2d_plain(x: torch.Tensor, kernel: torch.Tensor, up: int = 1,
+                    down: int = 1, pad: tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """Zero-stuff, `F.pad`, then one depthwise `F.conv2d` with the flipped
+    kernel. x: (N, C, H, W); kernel: (kh, kw)."""
+    return _upfirdn2d_native(x, kernel, up, down, pad, pad)
+
+
+def _backward_pads(kernel_size: int, up: int, down: int, pad0: int, size: int,
+                   grad_size: int) -> tuple[int, int]:
+    """Pads, along one axis, of the upfirdn2d that computes the input
+    gradient (the original StyleGAN2 op's `UpFirDn2dBackward`)."""
+    return kernel_size - pad0 - 1, size * up - grad_size * down + pad0 - up + 1
+
+
+def upfirdn2d_backward_plain(grad: torch.Tensor, kernel: torch.Tensor, up: int, down: int,
+                             pad: tuple[int, int], in_hw: tuple[int, int]) -> torch.Tensor:
+    """The gradient of `upfirdn2d(x, kernel, up, down, pad)` with respect to
+    x (N, C, *in_hw): upfirdn2d of `grad` with the flipped kernel, up and
+    down swapped and the pads of `_backward_pads`."""
+    kh, kw = kernel.shape
+    pad_y = _backward_pads(kh, up, down, pad[0], in_hw[0], grad.shape[2])
+    pad_x = _backward_pads(kw, up, down, pad[0], in_hw[1], grad.shape[3])
+    return _upfirdn2d_native(grad, torch.flip(kernel, (0, 1)), down, up, pad_y, pad_x)
 
 
 def rank1_taps(kernel) -> tuple[np.ndarray, np.ndarray] | None:
@@ -102,12 +131,79 @@ def _launch_taps(kernel: torch.Tensor, separable: bool) -> tuple[int, ctypes.Arr
     return hit
 
 
+def _check_kernel(name: str, kernel: torch.Tensor, up: int, down: int) -> None:
+    if kernel.device.type != "cpu":
+        raise ValueError(f"{name}: the FIR kernel must be a CPU tensor")
+    if kernel.requires_grad:
+        raise RuntimeError(f"{name}: the FIR kernel is a constant; it may not require grad")
+    kh, kw = kernel.shape
+    if not (1 <= kh <= 4 and 1 <= kw <= 4 and up in (1, 2) and down in (1, 2)):
+        raise ValueError(f"{name}: unsupported kernel {kh}x{kw}, up {up}, down {down}")
+
+
+def _launch(counter, x: torch.Tensor, kernel: torch.Tensor, up: int, down: int, pad0: int,
+            out_hw: tuple[int, int]) -> torch.Tensor:
+    """One launch of kernel K2 over x (N, C, H, W) into (N, C, *out_hw):
+    output row o reads zero-stuffed rows o * down - pad0 + t; rows past
+    either end read zero. Counted on `counter`."""
+    n, c, h, w = x.shape
+    kh, kw = kernel.shape
+    rank1, taps = _launch_taps(kernel, up == 1 and down == 1)
+    out = x.new_empty(n, c, *out_hw)
+    status = library().e4s_upfirdn2d(
+        x.data_ptr(), out.data_ptr(), kernels.DTYPE_CODES[x.dtype], n * c,
+        h, w, out_hw[0], out_hw[1], up, down, pad0, taps, kh, kw, rank1,
+        x.device.index, kernels.stream_of(x))
+    kernels.check_status(counter.__name__, status)
+    counter.launches += 1
+    return out
+
+
+@kernels.counted("upfirdn2d_backward")
+def upfirdn2d_backward(grad: torch.Tensor, kernel: torch.Tensor, up: int, down: int,
+                       pad: tuple[int, int], in_hw: tuple[int, int]) -> torch.Tensor:
+    """The input gradient of `upfirdn2d(x, kernel, up, down, pad)` for x of
+    spatial size `in_hw`: the plain version on the CPU, kernel K2 itself on
+    a CUDA device, launched on the flipped kernel with up and down swapped
+    (square kernels: one leading pad serves both axes)."""
+    if kernels.use_plain(grad):
+        return upfirdn2d_backward_plain(grad, kernel, up, down, pad, in_hw)
+    name = "upfirdn2d_backward"
+    if grad.ndim != 4:
+        raise ValueError(f"{name}: grad must be (N, C, H, W), got {tuple(grad.shape)}")
+    kernels.check_input(name, "grad", grad)
+    _check_kernel(name, kernel, up, down)
+    kh, kw = kernel.shape
+    if kh != kw:
+        raise ValueError(f"{name}: the kernel takes one leading pad; {kh}x{kw} taps need two")
+    return _launch(upfirdn2d_backward, grad, torch.flip(kernel, (0, 1)), down, up,
+                   kh - pad[0] - 1, tuple(in_hw))
+
+
+class _UpFirDn2d(torch.autograd.Function):
+    """K2 forward; the input gradient through `upfirdn2d_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, up, down, pad, out_hw):
+        ctx.kernel, ctx.up, ctx.down, ctx.pad = kernel, up, down, pad
+        ctx.in_hw = tuple(x.shape[2:])
+        return _launch(upfirdn2d, x, kernel, up, down, pad[0], out_hw)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        grad_x = upfirdn2d_backward(grad.contiguous(), ctx.kernel, ctx.up, ctx.down, ctx.pad,
+                                    ctx.in_hw)
+        return grad_x, None, None, None, None, None
+
+
 @kernels.counted("upfirdn2d")
 def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
               pad: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """upfirdn2d of an NCHW tensor: the plain version on the CPU, kernel K2
     on a CUDA device (float32 or bfloat16, float32 arithmetic; kernel taps at
-    most 4 x 4, up and down 1 or 2).
+    most 4 x 4, up and down 1 or 2). Differentiable in x: on the card the
+    backward launches K2 on the flipped kernel (`upfirdn2d_backward`).
 
     Returns (N, C, H', W') with H' = (H * up + pad0 + pad1 - kh) // down + 1.
     """
@@ -116,26 +212,14 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
     name = "upfirdn2d"
     if x.ndim != 4:
         raise ValueError(f"{name}: x must be (N, C, H, W), got {tuple(x.shape)}")
-    kernels.check_input(name, "x", x)
-    if kernel.device.type != "cpu":
-        raise ValueError(f"{name}: the FIR kernel must be a CPU tensor")
+    kernels.check_input(name, "x", x, differentiable=True)
+    _check_kernel(name, kernel, up, down)
     kh, kw = kernel.shape
-    if not (1 <= kh <= 4 and 1 <= kw <= 4 and up in (1, 2) and down in (1, 2)):
-        raise ValueError(f"{name}: unsupported kernel {kh}x{kw}, up {up}, down {down}")
-    n, c, h, w = x.shape
-    oh = out_size(h, kh, up, down, pad)
-    ow = out_size(w, kw, up, down, pad)
+    oh = out_size(x.shape[2], kh, up, down, pad)
+    ow = out_size(x.shape[3], kw, up, down, pad)
     if oh <= 0 or ow <= 0:
-        raise ValueError(f"{name}: empty output for input {h}x{w} and pad {pad}")
-    rank1, taps = _launch_taps(kernel, up == 1 and down == 1)
-    out = x.new_empty(n, c, oh, ow)
-    status = library().e4s_upfirdn2d(
-        x.data_ptr(), out.data_ptr(), kernels.DTYPE_CODES[x.dtype], n * c,
-        h, w, oh, ow, up, down, pad[0], taps, kh, kw, rank1,
-        x.device.index, kernels.stream_of(x))
-    kernels.check_status(name, status)
-    upfirdn2d.launches += 1
-    return out
+        raise ValueError(f"{name}: empty output for input {tuple(x.shape[2:])} and pad {pad}")
+    return _UpFirDn2d.apply(x, kernel, up, down, tuple(pad), (oh, ow))
 
 
 def _resample_pads(kernel_size: int, factor: int, up: bool) -> tuple[int, int]:

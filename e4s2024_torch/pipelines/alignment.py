@@ -139,11 +139,11 @@ def warp_perspective(img: torch.Tensor, coeffs: torch.Tensor,
                      out_hw: tuple[int, int]) -> torch.Tensor:
     """PIL Image.transform(PERSPECTIVE) semantics: output pixel (x, y) reads
     the input at ((a x + b y + c) / (g x + h y + 1), (d x + e y + f) / (...)),
-    at pixel centres. img (H, W, C); coeffs (8,) float32. Used to paste the
-    swapped crop back into the frame (reference
-    Face_swap_with_two_imgs.py:264-279)."""
+    at pixel centres. img (H, W, C) with coeffs (8,), or img (B, H, W, C)
+    with coeffs (B, 8), float32. Used to paste the swapped crop back into
+    the frame (reference Face_swap_with_two_imgs.py:264-279)."""
     oh, ow = out_hw
-    a, b, c, d, e, f, g, h = coeffs.unbind()
+    a, b, c, d, e, f, g, h = coeffs[..., None, None].unbind(-3)
     dev = img.device
     xx = (torch.arange(ow, dtype=torch.float32, device=dev) + 0.5)[None, :].expand(oh, ow)
     yy = (torch.arange(oh, dtype=torch.float32, device=dev) + 0.5)[:, None].expand(oh, ow)

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from e4s2024_torch import resolve_device
+from e4s2024_torch.convert import drop_generator_buffers
 from e4s2024_torch.data.labels import FFHQ_TO_12, NUM_SEG_CLASSES, map_labels
 from e4s2024_torch.models.bisenet import BiSeNet, bicubic_downsample
 from e4s2024_torch.models.rgi import RGINet
@@ -76,7 +77,10 @@ class FaceSwapper:
 
     Args:
       rgi_state_dict: RGINet weights in the reference's names (`encoder.*`,
-        `G.*`, `MLPs.*`, `latent_avg`), as tensors or numpy arrays.
+        `G.*`, `MLPs.*`, `latent_avg`), as tensors or numpy arrays; the
+        generator's fixed buffers of a reference checkpoint (noise maps, FIR
+        kernels) are dropped (`convert.drop_generator_buffers`), every other
+        key loads strictly.
       bisenet_state_dict: BiSeNet weights (`cp.*`, `ffm.*`, `conv_out*`).
       config: SwapConfig.
       landmark_fn: (H, W, 3) uint8 frame -> (68, 2) landmarks or None, for
@@ -103,7 +107,8 @@ class FaceSwapper:
         self.rgi = RGINet(num_seg_cls=config.num_seg_cls, out_size=config.out_size,
                           remaining_layer_idx=config.remaining_layer_idx,
                           encoder_num_units=encoder_num_units)
-        self.rgi.load_state_dict(_tensor_dict(rgi_state_dict), strict=True)
+        self.rgi.load_state_dict(_tensor_dict(drop_generator_buffers(rgi_state_dict)),
+                                 strict=True)
         self.bisenet = BiSeNet()
         self.bisenet.load_state_dict(_tensor_dict(bisenet_state_dict), strict=True)
         for net in (self.rgi, self.bisenet):

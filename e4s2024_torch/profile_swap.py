@@ -1,7 +1,7 @@
 """Where the time of one swap goes, on a CUDA card.
 
     python -m e4s2024_torch.profile_swap [--mode exact|fast] [--dtype float32|bfloat16]
-                                         [--enhance | --raw]
+                                         [--enhance | --raw | --video]
 
 Builds FaceSwapper at the default configuration (1024^2 output, full
 encoder and parser) with seeded random weights (with --enhance, inside
@@ -19,6 +19,14 @@ a 1280x960 source onto a 1920x1080 target), warms it up, then:
    streams would count twice, the swap uses one), the kernels that take
    the most device time, and the calls and device time per swap of K2
    (`upfirdn2d_kernel`) and K3 (`regional_scale_kernel`).
+
+With --video it runs the video swap instead, `FaceSwapVideoPipeline` over
+the float32 swapper and the default landmark stack on `video_clip`'s 8-frame
+1280x720 clip, with the three loss nets at their published widths (seeded
+random weights) and PTI and stitching at the JAX package's defaults (80 and
+100 steps; --pti-steps and --stitching-steps cut them), after a warm-up clip
+of one step each; it prints the stage times (the pipeline's `timer` hook),
+the per-step times and the peak device memory.
 
 Prints one JSON object per line; the last line holds the totals.
 """
@@ -96,6 +104,85 @@ def raw_frames():
     return out
 
 
+def video_clip(frames: int = 8, size: tuple[int, int] = (720, 1280)):
+    """A seeded smooth clip, each frame the same scene moved by 2 rows and 4
+    columns from the last (coarse 40-pixel blocks plus a little noise,
+    uint8), and `raw_frames`' 1280x960 source photo; chip_smoke.py's
+    phase-6 clip."""
+    h, w = size
+    rng = np.random.default_rng(3)
+    pad = 4 * frames
+    scene = np.kron(rng.random(((h + pad) // 40 + 1, (w + pad) // 40 + 1, 3)),
+                    np.ones((40, 40, 1))) * 200
+    scene = (scene + rng.random(scene.shape) * 55).astype(np.uint8)
+    clip = [np.ascontiguousarray(scene[2 * i:2 * i + h, 4 * i:4 * i + w]) for i in range(frames)]
+    return raw_frames()[0], clip
+
+
+def loss_nets(device, seed: int = 4) -> dict:
+    """LPIPS AlexNet, IR-SE-50 ArcFace and the face-parsing U-Net at their
+    published widths with PyTorch's default initialisation from a seed
+    (LPIPS's lin heads made non-negative, as trained ones are), frozen on
+    `device`: the video swap's criterion nets."""
+    from e4s2024_torch.models.arcface import ArcFaceBackbone
+    from e4s2024_torch.models.lpips import LPIPS
+    from e4s2024_torch.models.parser_unet import ParsingUNet
+
+    torch.manual_seed(seed)
+    nets = {"lpips": LPIPS(), "arcface": ArcFaceBackbone(), "parser": ParsingUNet()}
+    with torch.no_grad():
+        for i in range(5):
+            w = getattr(nets["lpips"], f"lin{i}").model[1].weight
+            w.abs_()
+    return {k: v.to(device).eval().requires_grad_(False) for k, v in nets.items()}
+
+
+def profile_video(args) -> None:
+    """The video swap at the JAX package's tuning defaults, stage by stage."""
+    from e4s2024_torch.pipelines.video import FaceSwapVideoPipeline, StageTimer, VideoSwapConfig
+    from e4s2024_torch.training.pti import PTIConfig, StitchingConfig
+
+    torch.manual_seed(0)
+    rgi_sd = RGINet().state_dict()
+    sw = FaceSwapper(rgi_sd, BiSeNet().state_dict(), SwapConfig(regional_mode=args.mode),
+                     landmark_fn=detect.default_landmarker())
+    nets = loss_nets(sw.device)
+    source, frames = video_clip()
+
+    def pipeline(pti_steps, stitching_steps):
+        cfg = VideoSwapConfig(pti=PTIConfig(max_pti_steps=pti_steps, regional_mode=args.mode),
+                              stitching=StitchingConfig(max_steps=stitching_steps,
+                                                        regional_mode=args.mode))
+        return FaceSwapVideoPipeline(sw, cfg, loss_params=nets)
+
+    pipeline(1, 1)(source, frames)  # warm-up
+    sw.rgi.load_state_dict(rgi_sd)  # undo the warm-up's write-back
+    pipe = pipeline(args.pti_steps, args.stitching_steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timer = StageTimer()
+    t0 = time.perf_counter()
+    pipe(source, frames, timer=timer)
+    wall_s = time.perf_counter() - t0
+    for name, ms in timer.times.items():
+        print(json.dumps({"stage": name, "host_ms": ms}))
+    hist = pipe.histories
+    print(json.dumps({
+        "video": "FaceSwapVideoPipeline", "mode": args.mode, "frames": len(frames),
+        "frame_hw": list(frames[0].shape[:2]), "pti_steps": args.pti_steps,
+        "stitching_steps": args.stitching_steps, "card": torch.cuda.get_device_name(0),
+        "clip_s": wall_s, "s_per_frame": wall_s / len(frames),
+        "ms_per_pti_step": timer.times.get("pti_tune", 0.0) / max(args.pti_steps, 1),
+        "ms_per_stitching_step": timer.times.get("stitching_tune", 0.0)
+        / max(args.stitching_steps, 1),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "pti_loss_first_last": [hist["pti"][0]["loss"], hist["pti"][-1]["loss"]]
+        if hist.get("pti") else None,
+        "stitching_loss_first_last": [hist["stitching"][0]["loss"],
+                                      hist["stitching"][-1]["loss"]]
+        if hist.get("stitching") else None}))
+
+
 def staged_raw_swap(sw: FaceSwapper, source, target, stages: dict):
     """FaceSwapper.swap with the package's landmark stack, stage by stage
     (same calls, same order)."""
@@ -124,13 +211,22 @@ def main() -> None:
                     help="the SwinIR-enhanced swap (FullFaceSwapPipeline)")
     ap.add_argument("--raw", action="store_true",
                     help="the raw-frame swap (FaceSwapper.swap with the default landmark stack)")
+    ap.add_argument("--video", action="store_true",
+                    help="the video swap with PTI and stitching (FaceSwapVideoPipeline)")
+    ap.add_argument("--pti-steps", type=int, default=80, help="--video: PTI steps")
+    ap.add_argument("--stitching-steps", type=int, default=100, help="--video: stitching steps")
     args = ap.parse_args()
-    if args.enhance and args.raw:
-        ap.error("--enhance and --raw profile different swaps; pick one")
+    if args.enhance + args.raw + args.video > 1:
+        ap.error("--enhance, --raw and --video profile different swaps; pick one")
     if not torch.cuda.is_available():
         raise SystemExit("profile_swap: no CUDA device is available")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.video:
+        if args.dtype != "float32":
+            ap.error("--video tunes in float32")
+        profile_video(args)
+        return
 
     torch.manual_seed(0)
     sw = FaceSwapper(RGINet().state_dict(), BiSeNet().state_dict(),

@@ -22,15 +22,17 @@ import numpy as np
 
 
 def load_params(path: str) -> dict:
-    """A torch checkpoint file -> its state dict. Directories (orbax trees
-    of the JAX package) are refused: the port reads them once the training
-    slice ports `utils/checkpoint.py`."""
-    from e4s2024_torch.convert import load_reference_checkpoint
+    """A torch checkpoint file -> its state dict, without the fixed
+    generator buffers a reference E4S checkpoint carries
+    (`convert.drop_generator_buffers`). Directories (orbax trees of the JAX
+    package) are refused: the port reads them once the training slice ports
+    `utils/checkpoint.py`."""
+    from e4s2024_torch.convert import drop_generator_buffers, load_reference_checkpoint
 
     if os.path.isdir(path):
         raise ValueError(f"{path} is a directory: the port reads torch checkpoint files "
                          "(.pt/.pth), not orbax checkpoint trees")
-    return load_reference_checkpoint(path)
+    return drop_generator_buffers(load_reference_checkpoint(path))
 
 
 def main(argv=None):

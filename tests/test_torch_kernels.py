@@ -62,7 +62,8 @@ def test_bindings_match_sources():
 def test_wrappers_registered_with_counters():
     assert set(kernels.WRAPPERS) == {"fused_leaky_relu", "upfirdn2d", "regional_scale",
                                      "swin_attention_nhwc", "fused_swin_block",
-                                     "fused_window_attention"}
+                                     "fused_window_attention", "fused_leaky_relu_backward",
+                                     "upfirdn2d_backward", "regional_scale_backward"}
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
 
@@ -122,6 +123,93 @@ def test_upfirdn2d_rank1_detection_and_two_pass_order(up, down, pad, gain):
     rank1, taps = upfirdn._launch_taps(k, separable)
     assert rank1 == int(separable) and len(taps) == (8 if separable else 16)
 
+
+# the generator's three K2 cases (the x4-gain blur after a transposed
+# convolution, the ToRGB skip's up-2 FIR upsample, down-2 resampling), then
+# odd sizes, a negative pad and down 2 with a remainder
+K2_GRAD_CASES = [(1, 1, (1, 1), 4.0, (2, 3, 17, 17)), (2, 1, (2, 1), 4.0, (1, 3, 16, 16)),
+                 (1, 2, (1, 1), 1.0, (2, 4, 16, 16)), (1, 1, (2, 1), 1.0, (1, 2, 9, 13)),
+                 (1, 1, (-1, 2), 1.0, (1, 2, 9, 12)), (1, 2, (2, 1), 1.0, (1, 2, 15, 18)),
+                 (2, 2, (2, 1), 1.0, (1, 2, 7, 10))]
+
+
+@pytest.mark.parametrize("up,down,pad,gain,shape", K2_GRAD_CASES)
+def test_upfirdn2d_backward_plain_is_the_gradient(up, down, pad, gain, shape):
+    """K2's input gradient as upfirdn2d of the gradient (flipped taps, up and
+    down swapped, `_backward_pads`) against autograd of the plain version;
+    float32 summation order only. The taps are perturbed so that a flip is
+    not a no-op."""
+    k = upfirdn.make_kernel([1, 3, 3, 1]) * gain + 0.01 * _randn(4, 4, seed=2)
+    x = _randn(*shape).requires_grad_(True)
+    y = upfirdn.upfirdn2d_plain(x, k, up, down, pad)
+    g = _randn(*y.shape, seed=1)
+    (want,) = torch.autograd.grad(y, x, g)
+    got = upfirdn.upfirdn2d_backward_plain(g, k, up, down, pad, shape[2:])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    # the card's wrapper takes one leading pad for both axes: the same pad0
+    kh = k.shape[0]
+    assert upfirdn._backward_pads(kh, up, down, pad[0], shape[2], y.shape[2])[0] == kh - pad[0] - 1
+
+
+def test_regional_scale_and_fused_act_gradients_on_the_cpu():
+    """The formulas the card's backwards use, against autograd of the plain
+    versions: grad_x = K3(grad, seg, scales), grad_scales by
+    `regional_scale_grad_scales`; K1's from its output."""
+    x = _randn(2, 6, 5, 7).requires_grad_(True)
+    seg = _one_hot(2, 4, 5, 7)
+    s = _randn(2, 4, 6, seed=3).requires_grad_(True)
+    y = modulate.regional_scale_plain(x, seg, s)
+    g = _randn(*y.shape, seed=4)
+    gx, gs = torch.autograd.grad(y, (x, s), g)
+    torch.testing.assert_close(modulate.regional_scale_backward(g, seg, s), gx)
+    torch.testing.assert_close(modulate.regional_scale_grad_scales(g, x.detach(), seg), gs)
+    b = _randn(6, seed=5).requires_grad_(True)
+    y = fused_act.fused_leaky_relu_plain(x, b)
+    gx, gb = torch.autograd.grad(y, (x, b), g)
+    torch.testing.assert_close(fused_act.fused_leaky_relu_backward(g, y.detach()), gx)
+    torch.testing.assert_close(gx.sum(dim=(0, 2, 3)), gb)
+
+
+def test_autograd_functions_with_plain_launches(monkeypatch):
+    """The plumbing of K1-K3's autograd Functions on the CPU, each launch
+    replaced by its plain version: gradcheck in float64 (inputs that need
+    no gradient get none, K1's bias gets the summed gradient, K2's backward
+    takes the flipped taps and swapped factors), and a forward under
+    inference mode (the swaps run there). Small inputs on one thread:
+    gradcheck runs the forward twice per input element."""
+    def k2_plain(counter, x, k, up, down, pad0, out_hw):
+        kh = k.shape[0]
+        p1 = [(o - 1) * down + kh - n * up - pad0 for o, n in zip(out_hw, x.shape[2:])]
+        return upfirdn._upfirdn2d_native(x, k, up, down, (pad0, p1[0]), (pad0, p1[1]))
+
+    monkeypatch.setattr(fused_act, "_launch_forward", fused_act.fused_leaky_relu_plain)
+    monkeypatch.setattr(upfirdn, "_launch", k2_plain)
+    monkeypatch.setattr(modulate, "_launch", lambda counter, x, seg, s: modulate.regional_scale_plain(
+        x, seg, s))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        x = _randn(1, 2, 5, 6).double().requires_grad_(True)
+        b = _randn(2, seed=1).double().requires_grad_(True)
+        assert torch.autograd.gradcheck(
+            lambda x, b: fused_act._FusedLeakyReLU.apply(x, b, 0.2, 2 ** 0.5), (x, b))
+        assert torch.autograd.gradcheck(
+            lambda b: fused_act._FusedLeakyReLU.apply(x.detach(), b, 0.2, 2 ** 0.5), (b,))
+        k = (upfirdn.make_kernel([1, 3, 3, 1]) * 4 + 0.01 * _randn(4, 4, seed=2)).double()
+        for up, down, pad in ((1, 1, (1, 1)), (2, 1, (2, 1)), (1, 2, (1, 1)), (2, 2, (2, 1))):
+            out_hw = tuple(upfirdn.out_size(n, 4, up, down, pad) for n in x.shape[2:])
+            assert torch.autograd.gradcheck(
+                lambda x: upfirdn._UpFirDn2d.apply(x, k, up, down, pad, out_hw), (x,))
+        seg = _one_hot(1, 3, 5, 6).double()
+        s = _randn(1, 3, 2, seed=3).double().requires_grad_(True)
+        assert torch.autograd.gradcheck(lambda x, s: modulate._RegionalScale.apply(x, seg, s),
+                                        (x, s))
+        with torch.inference_mode():
+            fused_act._FusedLeakyReLU.apply(x, b, 0.2, 2 ** 0.5)
+            upfirdn._UpFirDn2d.apply(x, k, 1, 1, (1, 1), (4, 5))
+            modulate._RegionalScale.apply(x, seg, s)
+    finally:
+        torch.set_num_threads(threads)
 
 # ---------------------------------------------------------------- card
 
@@ -213,8 +301,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fused_act.fused_leaky_relu(x.transpose(2, 3), None)
     with pytest.raises(TypeError):
         fused_act.fused_leaky_relu(x.half(), None)
-    with pytest.raises(RuntimeError):
-        fused_act.fused_leaky_relu(x.clone().requires_grad_(True), None)
+    with pytest.raises(RuntimeError):  # K4-K6 are forward-only
+        window_attention.fused_window_attention(
+            *(_randn(2, 2, 64, 8, device=cuda).requires_grad_(True),) * 3,
+            _randn(2, 64, 64, device=cuda))
+    with pytest.raises(RuntimeError):  # a one-hot map carries no gradient
+        modulate.regional_scale(x, _one_hot(1, 12, 8, 8, device=cuda).requires_grad_(True),
+                                _randn(1, 12, 4, device=cuda))
     with pytest.raises(ValueError):
         upfirdn.upfirdn2d(x, torch.ones(5, 5))
     with pytest.raises(ValueError):
@@ -371,3 +464,112 @@ def test_swin_block_kernel_small_window_odd_heads(cuda, dtype):
     got = swin_block.fused_swin_block(x, wts, labels, window=4, heads=3, shift=2)
     want = swin_block.fused_swin_block_plain(x, wts, labels, window=4, heads=3, shift=2)
     _assert_close_to_plain(got, want, 2.0 ** -5)
+
+
+def _grad_pair(fn, plain, inputs, g):
+    """Gradients of fn(*inputs) and of plain(*inputs) (float32 copies of
+    the same values) under g, rounded to the output's dtype for both, for
+    the inputs that require grad."""
+    want_in = [t.detach().float().requires_grad_(t.requires_grad) if t.is_floating_point() else t
+               for t in inputs]
+    out = fn(*inputs)
+    g = g.to(out.dtype)
+    got = torch.autograd.grad(out, [t for t in inputs if t.requires_grad], g)
+    ref = plain(*want_in)
+    want = torch.autograd.grad(ref, [t for t in want_in if t.requires_grad], g.float())
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grads", ["x", "bias", "both"])
+def test_fused_leaky_relu_backward_kernel(cuda, dtype, grads):
+    """K1 under autograd on the card: the backward kernel (counted once) and
+    the bias sum against autograd of the plain version, with only x, only
+    the bias, or both requiring grad."""
+    x = _randn(2, 32, 33, 35, device=cuda, dtype=dtype).requires_grad_(grads != "bias")
+    b = _randn(32, device=cuda, seed=1).requires_grad_(grads != "x")
+    g = _randn(2, 32, 33, 35, device=cuda, seed=2)
+    got, want = _grad_pair(fused_act.fused_leaky_relu, fused_act.fused_leaky_relu_plain,
+                           (x, b), g)
+    assert fused_act.fused_leaky_relu_backward.launches == 1
+    for a, w in zip(got, want):
+        if a.shape == (32,):
+            # a float32 sum over 2 x 33 x 35 elements of grad_x, each rounded
+            # once to the input's type: within that rounding of the sum of
+            # their magnitudes (|grad_x| <= sqrt(2) |g|)
+            scale = (g.to(dtype).float().abs() * np.sqrt(2.0)).sum(dim=(0, 2, 3))
+            unit = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+            assert bool(((a.float() - w).abs() <= unit * scale + 1e-5).all()), (a, w)
+        else:
+            _assert_close_to_f32(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("up,down,pad,gain,shape", K2_GRAD_CASES + [
+    (1, 1, (1, 1), 4.0, (1, 32, 1025, 1025)), (2, 1, (2, 1), 4.0, (1, 3, 512, 512))])
+def test_upfirdn2d_backward_kernel(cuda, dtype, up, down, pad, gain, shape):
+    """K2's gradient is K2 on the flipped taps (counted as
+    `upfirdn2d_backward`), against autograd of the plain version, in the
+    generator's cases at their 1024^2 shapes and the CPU test's others."""
+    k = upfirdn.make_kernel([1, 3, 3, 1]) * gain
+    x = _randn(*shape, device=cuda, dtype=dtype).requires_grad_(True)
+    y_shape = upfirdn.upfirdn2d_plain(x.detach()[:1, :1].float(), k, up, down, pad).shape
+    g = _randn(shape[0], shape[1], *y_shape[2:], device=cuda, seed=1)
+    (got,), (want,) = _grad_pair(lambda t: upfirdn.upfirdn2d(t, k, up, down, pad),
+                                 lambda t: upfirdn.upfirdn2d_plain(t, k, up, down, pad), (x,), g)
+    assert upfirdn.upfirdn2d.launches == 1 and upfirdn.upfirdn2d_backward.launches == 1
+    _assert_close_to_f32(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,w,k", [(1, 128, 256, 256, 12), (2, 70, 9, 31, 12),
+                                       (1, 512, 4, 4, 12)])
+def test_regional_scale_backward_kernel(cuda, dtype, b, c, h, w, k):
+    """K3's grad_x is K3 itself (counted as `regional_scale_backward`);
+    grad_scales is one batched product over pixels; both against autograd
+    of the plain version."""
+    x = _randn(b, c, h, w, device=cuda, dtype=dtype).requires_grad_(True)
+    seg = _one_hot(b, k, h, w, device=cuda, dtype=dtype)
+    s = _randn(b, k, c, device=cuda, dtype=dtype, seed=3).requires_grad_(True)
+    g = _randn(b, c, h, w, device=cuda, seed=4)
+    (gx, gs), (wx, ws) = _grad_pair(modulate.regional_scale, modulate.regional_scale_plain,
+                                    (x, seg, s), g)
+    assert modulate.regional_scale_backward.launches == 1
+    _assert_close_to_f32(gx, wx)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2  # a sum over h * w products
+    torch.testing.assert_close(gs.float(), ws, rtol=tol, atol=tol * float(ws.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_generator_gradients_through_the_kernels(cuda, mode):
+    """A 64^2 regional generator's loss gradient with respect to every
+    parameter, through K1-K3 and their backwards, against the same gradient
+    with the plain versions on the card (float32, within 1e-4 of each
+    gradient's largest element)."""
+    from e4s2024_torch.models.rgi import RGINet
+
+    torch.manual_seed(0)
+    net = RGINet(out_size=64, remaining_layer_idx=7, encoder_num_units=(1, 1, 1, 1)).to(cuda)
+    sv = _randn(2, 12, 1280, device=cuda) * 0.1
+    seg = _one_hot(2, 12, 32, 32, device=cuda)
+    target = _randn(2, 3, 64, 64, device=cuda, seed=5)
+
+    def grads():
+        net.zero_grad(set_to_none=True)
+        img, _, _ = net.gen_img(None, net.cal_style_codes(sv), seg, regional_mode=mode)
+        ((img - target) ** 2).mean().backward()
+        return {n: p.grad.clone() for n, p in net.named_parameters() if p.grad is not None}
+
+    got = grads()
+    counts = kernels.launch_counts()
+    with kernels.plain_versions_on_card():
+        want = grads()
+    for name in ("fused_leaky_relu", "upfirdn2d", "regional_scale"):
+        assert counts[name] > 0 and counts[name + "_backward"] > 0, counts
+    assert set(got) == set(want)
+    for n, w in want.items():
+        torch.testing.assert_close(got[n], w, rtol=1e-3, atol=1e-4 * float(w.abs().max()), msg=n)
