@@ -49,8 +49,10 @@ Phases, each of which must pass or the script exits non-zero:
    the launches of K1-K3 and of their backward kernels (which PTI and
    stitching run), the clip against the same clip with the plain versions
    forced on from the same starting weights, the pixels outside every
-   pasted quad, and one PTI step's time and peak memory at frames_per_chunk
-   2, 4 and 8. Phase 2 also holds each K1-K3 backward, at the 1024^2
+   pasted quad, a stitching run on two crops whose labels have background
+   (the random parse has none, so the clip's border ring is empty) against
+   its plain-version run, and one PTI step's time and peak memory at
+   frames_per_chunk 2, 4 and 8. Phase 2 also holds each K1-K3 backward, at the 1024^2
    generator's shapes, against torch.autograd.grad of the plain version.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
@@ -133,6 +135,9 @@ CHUNK_SWEEP = (2, 4, 8)
 # first step's gradient is rounding noise on the random-weight clip (see
 # phase_video; 3.8e-3 to 5.8e-3 at step 2 in three runs on an H100)
 STITCH_LATER_REL = 2e-2
+# the stitching run on labels with background (a border ring that is not
+# empty): its steps, each held at phase 6's 1e-3
+STITCH_RING_STEPS = 3
 BACKWARD = ("fused_leaky_relu_backward", "upfirdn2d_backward", "regional_scale_backward")
 
 # kernels whose bfloat16 instances must hold tensor-core instructions
@@ -1038,11 +1043,62 @@ def _video_run(torch, kernels, pipe, rgi_sd, source, frames):
     return outs, rec, hist
 
 
+def _stitching_with_ring(torch, kernels, pipe, nets, u8, labels, sv):
+    """StitchingCoach at 1024^2 on two of the clip's crops whose labels are
+    background in their outer eighth, so that the border ring is not empty
+    and every step's gradient, the first included, holds the border term.
+    The content targets are the generator's own synthesis, as in the
+    pipeline. The kernels' run against the plain versions' from the same
+    weights. Returns (record, problems)."""
+    from e4s2024_torch.ops.morphology import dilation
+    from e4s2024_torch.training.pti import StitchingCoach, StitchingConfig
+
+    n, cfg = 2, StitchingConfig()
+    m = labels.shape[-1] // 8
+    inner = torch.zeros_like(labels[:n], dtype=torch.bool)
+    inner[:, m:-m, m:-m] = True
+    lab = torch.where(inner, labels[:n], torch.zeros_like(labels[:n]))
+    fg = (~((lab == 0) | (lab == 4) | (lab == 11)))[:, None].float()
+    ring = int((dilation(fg, 2 * cfg.outer_dilation + 1) > fg).sum())
+    with torch.no_grad():
+        content = pipe._gen_raw(sv[:n], lab)
+    coach = StitchingCoach(pipe.swapper.rgi, nets, cfg)
+
+    def run():
+        kernels.reset_launch_counts()
+        _, hist = coach.tune(None, content, u8[:n], lab.to(torch.uint8), sv[:n],
+                             steps=STITCH_RING_STEPS)
+        return hist, kernels.launch_counts()
+
+    hist, launches = run()
+    with kernels.plain_versions_on_card():
+        phist, plain_launches = run()
+    losses, plain_losses = [h["loss"] for h in hist], [h["loss"] for h in phist]
+    rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses, plain_losses)]
+    rec = {"frames": n, "steps": STITCH_RING_STEPS, "ring_pixels": ring,
+           "losses": losses, "plain_losses": plain_losses,
+           "border_l2": [h["loss_border_l2"] for h in hist], "vs_plain_loss_rel": rel,
+           "limit": 1e-3, "launches": {k: launches[k] for k in ("fused_leaky_relu", "upfirdn2d",
+                                                                 "regional_scale", *BACKWARD)}}
+    problems = []
+    if ring == 0 or not hist[0]["loss_border_l2"] > 0:
+        problems.append(f"stitching check: empty border ring ({ring} pixels)")
+    if not all(np.isfinite(v) for v in losses + plain_losses):
+        problems.append("stitching check: non-finite losses")
+    if max(rel) > 1e-3:
+        problems.append(f"stitching check: losses differ from the plain versions' by {rel}")
+    if any(launches[name] == 0 for name in BACKWARD) or any(plain_launches.values()):
+        problems.append(f"stitching check: launches {launches}, plain run {plain_launches}")
+    return rec, problems
+
+
 def phase_video(torch, rgi_sd, bise_sd):
     """The video swap at the default stack, float32 exact: a warm-up clip
     (one step of each tune), the measured clip, the same clip with the
-    plain versions forced on the card, then one PTI step at each chunk size
-    of CHUNK_SWEEP. Returns the measured clip's record."""
+    plain versions forced on the card, a stitching run whose border ring is
+    not empty against its plain-version run (`_stitching_with_ring`), then
+    one PTI step at each chunk size of CHUNK_SWEEP. Returns the measured
+    clip's record."""
     import warnings
 
     from e4s2024_torch import kernels
@@ -1125,12 +1181,16 @@ def phase_video(torch, rgi_sd, bise_sd):
     log(f"[video] {json.dumps(rec)}")
     log(f"[video] plain versions: {json.dumps(prec)}")
 
-    # one PTI step over the 8 crops at each chunk size: time and peak memory
     with torch.no_grad():
         crops, _ = pipe.align_frames(frames)
         labels = pipe.parse_frames(crops)
         sv = pipe.style_vectors(crops, labels)
     u8 = torch.clamp(torch.round(crops), 0, 255).to(torch.uint8)
+    ring_rec, ring_problems = _stitching_with_ring(torch, kernels, pipe, nets, u8, labels, sv)
+    problems += ring_problems
+    log(f"[video] stitching with a border ring: {json.dumps(ring_rec)}")
+
+    # one PTI step over the 8 crops at each chunk size: time and peak memory
     for chunk in CHUNK_SWEEP:
         coach = PTICoach(swapper.rgi, nets, PTIConfig(frames_per_chunk=chunk))
         torch.cuda.synchronize()
@@ -1139,14 +1199,10 @@ def phase_video(torch, rgi_sd, bise_sd):
         base = torch.cuda.memory_allocated() / 2 ** 30
         sweep = {"frames_per_chunk": chunk, "frames": len(frames), "base_mem_gib": base}
         t0 = time.perf_counter()
-        try:
-            coach.tune(None, u8, labels.to(torch.uint8), sv, u8, steps=1)
-            torch.cuda.synchronize()
-            sweep.update(pti_step_ms=(time.perf_counter() - t0) * 1e3,
-                         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-        except torch.cuda.OutOfMemoryError:  # the sweep's point is where memory ends
-            sweep.update(out_of_memory=True,
-                         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        coach.tune(None, u8, labels.to(torch.uint8), sv, u8, steps=1)
+        torch.cuda.synchronize()
+        sweep.update(pti_step_ms=(time.perf_counter() - t0) * 1e3,
+                     peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         del coach
         log(f"[video] pti step {json.dumps(sweep)}")
     del swapper, pipe, nets, crops, labels, sv, u8

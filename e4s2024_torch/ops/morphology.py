@@ -18,7 +18,6 @@ def dilation_planar(t: torch.Tensor, size: int) -> torch.Tensor:
     return F.max_pool2d(padded, size, stride=1)
 
 
-
 def dilation(x: torch.Tensor, size: int) -> torch.Tensor:
     """Max over a size x size flat structuring element. x: (B, C, H, W)."""
     return dilation_planar(x, size)

@@ -134,10 +134,8 @@ class FaceSwapVideoPipeline:
     """
 
     def __init__(self, swapper: FaceSwapper, cfg: VideoSwapConfig = VideoSwapConfig(),
-                 loss_params: Mapping | None = None, mesh=None,
+                 loss_params: Mapping | None = None,
                  driven_hook: Callable | None = None, recolorer=None, enhancer=None):
-        if mesh is not None:
-            raise NotImplementedError("the mesh path waits for the training slice (DDP)")
         if swapper.dtype != torch.float32:
             raise ValueError(f"the video swap tunes the generator in float32; the swapper "
                              f"runs {swapper.cfg.compute_dtype}")

@@ -24,8 +24,7 @@ With --video it runs the video swap instead, `FaceSwapVideoPipeline` over
 the float32 swapper and the default landmark stack on `video_clip`'s 8-frame
 1280x720 clip, with the three loss nets at their published widths (seeded
 random weights) and PTI and stitching at the JAX package's defaults (80 and
-100 steps; --pti-steps and --stitching-steps cut them), after a warm-up clip
-of one step each; it prints the stage times (the pipeline's `timer` hook),
+100 steps), after a warm-up clip of one step each; it prints the stage times (the pipeline's `timer` hook),
 the per-step times and the peak device memory.
 
 Prints one JSON object per line; the last line holds the totals.
@@ -36,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -149,15 +149,16 @@ def profile_video(args) -> None:
     nets = loss_nets(sw.device)
     source, frames = video_clip()
 
+    pti, stitching = PTIConfig(regional_mode=args.mode), StitchingConfig(regional_mode=args.mode)
+
     def pipeline(pti_steps, stitching_steps):
-        cfg = VideoSwapConfig(pti=PTIConfig(max_pti_steps=pti_steps, regional_mode=args.mode),
-                              stitching=StitchingConfig(max_steps=stitching_steps,
-                                                        regional_mode=args.mode))
+        cfg = VideoSwapConfig(pti=replace(pti, max_pti_steps=pti_steps),
+                              stitching=replace(stitching, max_steps=stitching_steps))
         return FaceSwapVideoPipeline(sw, cfg, loss_params=nets)
 
     pipeline(1, 1)(source, frames)  # warm-up
     sw.rgi.load_state_dict(rgi_sd)  # undo the warm-up's write-back
-    pipe = pipeline(args.pti_steps, args.stitching_steps)
+    pipe = pipeline(pti.max_pti_steps, stitching.max_steps)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timer = StageTimer()
@@ -169,12 +170,11 @@ def profile_video(args) -> None:
     hist = pipe.histories
     print(json.dumps({
         "video": "FaceSwapVideoPipeline", "mode": args.mode, "frames": len(frames),
-        "frame_hw": list(frames[0].shape[:2]), "pti_steps": args.pti_steps,
-        "stitching_steps": args.stitching_steps, "card": torch.cuda.get_device_name(0),
+        "frame_hw": list(frames[0].shape[:2]), "pti_steps": pti.max_pti_steps,
+        "stitching_steps": stitching.max_steps, "card": torch.cuda.get_device_name(0),
         "clip_s": wall_s, "s_per_frame": wall_s / len(frames),
-        "ms_per_pti_step": timer.times.get("pti_tune", 0.0) / max(args.pti_steps, 1),
-        "ms_per_stitching_step": timer.times.get("stitching_tune", 0.0)
-        / max(args.stitching_steps, 1),
+        "ms_per_pti_step": timer.times["pti_tune"] / pti.max_pti_steps,
+        "ms_per_stitching_step": timer.times["stitching_tune"] / stitching.max_steps,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "pti_loss_first_last": [hist["pti"][0]["loss"], hist["pti"][-1]["loss"]]
         if hist.get("pti") else None,
@@ -213,8 +213,6 @@ def main() -> None:
                     help="the raw-frame swap (FaceSwapper.swap with the default landmark stack)")
     ap.add_argument("--video", action="store_true",
                     help="the video swap with PTI and stitching (FaceSwapVideoPipeline)")
-    ap.add_argument("--pti-steps", type=int, default=80, help="--video: PTI steps")
-    ap.add_argument("--stitching-steps", type=int, default=100, help="--video: stitching steps")
     args = ap.parse_args()
     if args.enhance + args.raw + args.video > 1:
         ap.error("--enhance, --raw and --video profile different swaps; pick one")

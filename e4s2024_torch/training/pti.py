@@ -13,8 +13,7 @@ one device:
   face (content) region and the target frame in the dilated border ring.
 
 Both step in a plain loop: the JAX package's `scan_steps`, which fuses
-optimizer steps into one XLA program, has no counterpart here, and the
-field is accepted and ignored. Adam runs over the parameters that
+optimizer steps into one XLA program, has no counterpart here. Adam runs over the parameters that
 `_g_trainable_mask` selects (torch's Adam is optax's: eps outside the square
 root); the rest are frozen. `remat` recomputes the synthesis in the backward
 pass (`torch.utils.checkpoint`). Tuning runs in float32.
@@ -119,9 +118,6 @@ class PTIConfig:
     # bfloat16 forward, which this port does not have yet
     compute_dtype: str = "float32"
     sample_seed: int = 0
-    # the JAX package fuses this many steps into one XLA program; accepted
-    # and ignored here (every step is its own iteration of a plain loop)
-    scan_steps: int | None = 10
 
 
 @dataclass
@@ -138,8 +134,6 @@ class StitchingConfig:
     regional_mode: str = "exact"
     remat: bool = True
     frames_per_chunk: int | None = 2
-    # accepted and ignored, as PTIConfig.scan_steps
-    scan_steps: int | None = 10
 
 
 class _Coach:
@@ -147,10 +141,7 @@ class _Coach:
     trainable set, the (optionally recomputed) synthesis, the step over
     chunks and the metrics fetched once."""
 
-    def __init__(self, net: RGINet, loss_params: Mapping, cfg, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("the mesh path waits for the training slice (DDP); "
-                                      "tune on one device")
+    def __init__(self, net: RGINet, loss_params: Mapping, cfg):
         if getattr(cfg, "compute_dtype", "float32") != "float32":
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: tuning runs in float32 "
                              "(float32 master weights with a bfloat16 forward are not ported)")
@@ -229,9 +220,8 @@ class _Coach:
 class PTICoach(_Coach):
     """Per-video generator tune on one device."""
 
-    def __init__(self, net: RGINet, loss_params: Mapping, cfg: PTIConfig = PTIConfig(),
-                 mesh=None):
-        super().__init__(net, loss_params, cfg, mesh)
+    def __init__(self, net: RGINet, loss_params: Mapping, cfg: PTIConfig = PTIConfig()):
+        super().__init__(net, loss_params, cfg)
 
     def _chunk_loss(self, work, frames, labels, style_vectors, recolor):
         """Loss and metrics of one chunk. frames and recolor (c, S, S, 3)
@@ -288,8 +278,8 @@ class StitchingCoach(_Coach):
     the border ring against the target frame."""
 
     def __init__(self, net: RGINet, loss_params: Mapping,
-                 cfg: StitchingConfig = StitchingConfig(), mesh=None):
-        super().__init__(net, loss_params, cfg, mesh)
+                 cfg: StitchingConfig = StitchingConfig()):
+        super().__init__(net, loss_params, cfg)
 
     def _chunk_loss(self, work, content_img, border_img, labels, style_vectors):
         cfg = self.cfg

@@ -545,11 +545,14 @@ def test_regional_scale_backward_kernel(cuda, dtype, b, c, h, w, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["exact", "fast"])
-def test_generator_gradients_through_the_kernels(cuda, mode):
+def test_generator_gradients_through_the_kernels(cuda, mode, monkeypatch):
     """A 64^2 regional generator's loss gradient with respect to every
     parameter, through K1-K3 and their backwards, against the same gradient
     with the plain versions on the card (float32, within 1e-4 of each
-    gradient's largest element)."""
+    gradient's largest element). cuDNN runs its deterministic algorithms:
+    with the others, the plain versions' own gradients vary from run to run
+    by as much as they differ from the kernels', which at times pushed the
+    comparison past the bound."""
     from e4s2024_torch.models.rgi import RGINet
 
     torch.manual_seed(0)
@@ -564,6 +567,7 @@ def test_generator_gradients_through_the_kernels(cuda, mode):
         ((img - target) ** 2).mean().backward()
         return {n: p.grad.clone() for n, p in net.named_parameters() if p.grad is not None}
 
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     got = grads()
     counts = kernels.launch_counts()
     with kernels.plain_versions_on_card():

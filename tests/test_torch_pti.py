@@ -109,5 +109,3 @@ def test_coach_refuses_what_is_not_ported():
     net = RGINet(num_seg_cls=12, **TINY)
     with pytest.raises(ValueError, match="float32"):
         pti.PTICoach(net, {}, pti.PTIConfig(compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pti.StitchingCoach(net, {}, pti.StitchingConfig(), mesh=object())

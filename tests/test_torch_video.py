@@ -155,15 +155,13 @@ def test_recolorer_hook_gives_the_pti_targets(weights):
     assert FaceSwapVideoPipeline(sw, _vcfg("torch")).recolor_targets(d, t) is d
 
 
-def test_video_pipeline_refuses_bfloat16_and_mesh(weights):
+def test_video_pipeline_refuses_bfloat16(weights):
     _, rgi_vars, bise = weights
     sw = FaceSwapper(rgi_state_dict_from_jax(rgi_vars), bisenet_state_dict_from_jax(bise),
                      SwapConfig(compute_dtype="bfloat16", **_kw()), device="cpu",
                      encoder_num_units=UNITS)
     with pytest.raises(ValueError, match="float32"):
         FaceSwapVideoPipeline(sw, _vcfg("torch"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        FaceSwapVideoPipeline(port_swapper(weights), _vcfg("torch"), mesh=object())
 
 
 def test_untuned_clip_matches_jax(weights):
