@@ -53,7 +53,19 @@ Phases, each of which must pass or the script exits non-zero:
    (the random parse has none, so the clip's border ring is empty) against
    its plain-version run, and one PTI step's time and peak memory at
    frames_per_chunk 2, 4 and 8. Phase 2 also holds each K1-K3 backward, at the 1024^2
-   generator's shapes, against torch.autograd.grad of the plain version.
+   generator's shapes, against torch.autograd.grad of the plain version;
+7. zoo: `FullFaceSwapPipeline` at the reference's default configuration
+   with face_inpainting (GPEN-512 enhancement, the phase-3 float32 exact
+   swapper, the Blender recolor with RealESRGAN x4 and the edge-aware
+   blend, GCFSR inpainting; seeded random weights at published widths), B=1
+   on 1024^2 crops: timed calls with the launch counts and the stage times,
+   the call against the plain versions on the card, the inpaint
+   composite's untouched pixels, `swap_batch` at B=4 against four single
+   calls with its throughput and peak memory (and B=8, 16, 24), one `swap_raw` on
+   phase 5's frames and one call per classical ct_mode (rct, lct, mkl,
+   sot); then the CodeFormer and GFPGAN enhancers, MISF inpainting and a
+   2-step W-space refinement once each. Phase 2 also holds K1 and K2 at the
+   two shapes GPEN-512 adds.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Float32 convolutions and matrix
@@ -139,6 +151,25 @@ STITCH_LATER_REL = 2e-2
 # empty): its steps, each held at phase 6's 1e-3
 STITCH_RING_STEPS = 3
 BACKWARD = ("fused_leaky_relu_backward", "upfirdn2d_backward", "regional_scale_backward")
+
+# phase 7: launches per FullFaceSwapPipeline call at the default config
+# (GPEN-512: 8 ConvLayers of the encoder, K1 after each and K2 before the 7
+# downsampling ones, K1 after the style head, the 8 style-MLP layers and the
+# 15 styled convs, K2 after the 7 up-convs and on the 7 ToRGB skips;
+# GCFSR-256: K1 after 8 activated ConvLayers, the latent head and 9 styled
+# convs, K2 before the 6 downsampling ConvLayers, after the 4 up-convs and on
+# the 4 ToRGB skips; the core swap as PER_CALL["exact"]; Blender and RRDB
+# run none; a swap_batch call launches as many as one call), the timed
+# requests, the B of swap_batch against single calls, larger Bs for the
+# memory line, the classical ct_modes it runs
+ZOO_PER_CALL = {"fused_leaky_relu": 17 + 32 + 18, "upfirdn2d": 16 + 21 + 14,
+                "regional_scale": 6}
+ZOO_REQUESTS, ZOO_BATCH, ZOO_BATCH_MEMORY = 3, 4, (8, 16, 24)
+ZOO_CT_MODES = ("rct", "lct", "mkl", "sot")
+OPTIMIZE_W_STEPS = 2
+# the kernel cases phase 7 adds, reported in the summary line too
+ZOO_CASES = (("fused_leaky_relu", "GPEN-512 decoder after the concat, (1, 128, 512^2)"),
+             ("upfirdn2d", "GPEN-512 encoder downsample blur, (1, 64, 512^2) pad (2, 2)"))
 
 # kernels whose bfloat16 instances must hold tensor-core instructions
 TENSOR_CORE_KERNELS = ("swin_block_kernel", "window_attention_kernel")
@@ -405,11 +436,49 @@ def phase_kernels(torch):
             sets=sets, symbol="regional_scale_kernel"))
         del sets
 
+    records += _zoo_kernel_records(torch, randn)
     records += _backward_records(torch, randn, gen)
     records += _swin_kernel_records(torch, randn)
     failed = [r for r in records if not r["ok"]]
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
+    return records
+
+
+def _zoo_kernel_records(torch, randn):
+    """K1 and K2 at the shapes the zoo-enhanced swap adds, float32 (phase
+    7): GPEN-512's largest K1, after its last decoder conv concatenates the
+    encoder's features onto the conv's output, and the blur of its
+    encoder's first downsampling ConvLayer (pad (2, 2), gain 1). Their cases
+    are ZOO_CASES, the summary line reports them beside each kernel's first
+    case."""
+    import torch.nn.functional as F
+
+    from e4s2024_torch.ops import fused_act, upfirdn
+
+    label_k1, label_k2 = (label for _, label in ZOO_CASES)
+    x, b = randn(1, 128, 512, 512), randn(128)
+    records = [_case_record(
+        torch, "fused_leaky_relu", label_k1,
+        lambda: fused_act.fused_leaky_relu(x, b),
+        lambda: fused_act.fused_leaky_relu_plain(x, b),
+        lambda: fused_act.fused_leaky_relu_plain(x, b),
+        None, 2 * x.numel() * 4 + b.numel() * 4, 3 * x.numel(), 1e-5, 1e-5)]
+    del x
+    blur = upfirdn.make_kernel([1, 3, 3, 1])
+    shape, pad = (1, 64, 512, 512), (2, 2)
+    w = torch.flip(blur, (0, 1)).cuda().expand(shape[1], 1, 4, 4)
+    out_elems = shape[0] * shape[1] * upfirdn.out_size(shape[2], 4, 1, 1, pad) ** 2
+    bytes_moved = (int(np.prod(shape)) + out_elems) * 4
+    sets = rotation(lambda: (randn(*shape),), bytes_moved)
+    records.append(_case_record(
+        torch, "upfirdn2d", label_k2,
+        lambda x: upfirdn.upfirdn2d(x, blur, pad=pad),
+        lambda x: upfirdn.upfirdn2d_plain(x, blur, pad=pad),
+        lambda x: upfirdn.upfirdn2d_plain(x, blur, pad=pad),
+        lambda x: F.conv2d(x, w, padding=2, groups=shape[1]), bytes_moved, 2 * 16 * out_elems,
+        1e-5, 1e-5, sets=sets, symbol="upfirdn2d_kernel"))
+    del sets
     return records
 
 
@@ -1212,6 +1281,250 @@ def phase_video(torch, rgi_sd, bise_sd):
     return rec
 
 
+def _zoo_inputs(n: int, size: int = 1024):
+    """n seeded smooth aligned pairs, as `_inputs` makes one."""
+    rng = np.random.default_rng(SEED + 7)
+    coarse = rng.random((2, n, 16, 16, 3))
+    img = np.kron(coarse, np.ones((1, 1, size // 16, size // 16, 1))) * 200
+    img += rng.random(img.shape) * 55
+    return img[0].astype(np.uint8), img[1].astype(np.uint8)
+
+
+def _zoo_call(torch, kernels, fn, requests=1):
+    """fn() after a warm-up, `requests` times, the launch counts set to 0
+    before and read after. Returns (last output, ms per call, launches,
+    peak GiB)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    ms, out = [], None
+    for _ in range(requests):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return out, ms, kernels.launch_counts(), torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_zoo(torch, rgi_sd, bise_sd):
+    """The zoo-enhanced swap at the reference's default FullSwapConfig with
+    face_inpainting on: GPEN-512, the phase-3 float32 exact swapper, the
+    Blender recolor with RealESRGAN x4 and the edge-aware blend, GCFSR
+    inpainting (`profile_swap.zoo_components`, seeded random weights), B=1
+    on 1024^2 crops. Timed calls with the launch counts, the stage times of
+    the `timer` hook, the call against the same call with the plain
+    versions on the card (image mean within 0.5 levels, as phase 4), the
+    inpaint composite's pixels where its soft mask is 0 against its input
+    (equal), also on a synthetic hole since the random parse may leave
+    none, `swap_batch` at B=4 against four single calls with its time and
+    peak memory (and at B=8, 16 and 24 for the memory line), one `swap_raw` on phase
+    5's frames, and one call in each classical ct_mode of ZOO_CT_MODES.
+    Returns the record of the timed calls."""
+    import warnings
+
+    from e4s2024_torch import kernels
+    from e4s2024_torch.pipelines.detect import default_landmarker
+    from e4s2024_torch.pipelines.full_swap import FullFaceSwapPipeline, FullSwapConfig
+    from e4s2024_torch.pipelines.swap import FaceSwapper, SwapConfig
+    from e4s2024_torch.pipelines.video import StageTimer
+    from e4s2024_torch.profile_swap import raw_frames, zoo_components
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # random landmark weights, said in phase 5
+        landmarker = default_landmarker(device="cuda")
+    swapper = FaceSwapper(rgi_sd, bise_sd, SwapConfig(), landmark_fn=landmarker, device="cuda")
+    comps = zoo_components("cuda")
+    pipe = FullFaceSwapPipeline(swapper, comps, FullSwapConfig(face_inpainting=True))
+    if not pipe._fused():
+        raise AssertionError("zoo: the default config should take JAX's fused semantics")
+    driven, target = _inputs(1024)
+    src, tgt = driven[0], target[0]
+    problems = []
+
+    # capture what the inpaint composite reads and writes
+    seen = []
+    composite = pipe._inpaint_composite
+
+    def recording(img, out, hole):
+        res = composite(img, out, hole)
+        seen.append((img, hole, res))
+        return res
+
+    pipe._inpaint_composite = recording
+    out, ms, launches, peak = _zoo_call(
+        torch, kernels, lambda: pipe(src, tgt, return_intermediates=True), ZOO_REQUESTS)
+    want = dict.fromkeys(launches, 0)
+    want.update({k: ZOO_REQUESTS * v for k, v in ZOO_PER_CALL.items()})
+    if launches != want:
+        problems.append(f"launches {launches}, expected {want}")
+    image = out["image"]
+    if image.shape != (1024, 1024, 3) or image.dtype != torch.uint8:
+        problems.append(f"bad output {tuple(image.shape)} {image.dtype}")
+    img_in, hole, res = seen[-1]
+    soft = pipe._inpaint_soft_mask(hole, 1024)[:, 0]
+    outside = soft == 0
+    outside_equal = bool(torch.equal(res[outside], img_in[outside]))
+    pipe._inpaint_composite = composite
+
+    timer = StageTimer()
+    pipe(src, tgt, timer=timer)
+    with kernels.plain_versions_on_card():
+        plain = pipe(src, tgt, return_intermediates=True)
+    diff = (plain["image"].int() - image.int()).abs()
+    driven_diff = (plain["driven"].int() - out["driven"].int()).abs()
+
+    # the inpaint stage on a synthetic hole: a disc over the face's centre
+    yy, xx = torch.meshgrid(torch.arange(512, device="cuda"), torch.arange(512, device="cuda"),
+                            indexing="ij")
+    disc = (((yy - 300) ** 2 + (xx - 256) ** 2) < 60 ** 2)[None]
+    with torch.inference_mode():
+        swapped = image[None].float()
+        filled = pipe._inpaint(swapped, disc)
+    disc_soft = pipe._inpaint_soft_mask(disc, 1024)[0, 0]
+    disc_outside = disc_soft == 0
+    disc_equal = bool(torch.equal(filled[0][disc_outside], swapped[0][disc_outside]))
+    disc_changed = float((filled[0][~disc_outside] - swapped[0][~disc_outside]).abs().mean())
+
+    rec = {"requests": ZOO_REQUESTS, "latency_ms": ms, "peak_mem_gib": peak,
+           "launches": launches, "launches_per_call": ZOO_PER_CALL,
+           "stage_ms": timer.times,
+           "vs_plain_max_abs": int(diff.max()), "vs_plain_mean_abs": float(diff.float().mean()),
+           "vs_plain_driven_max_abs": int(driven_diff.max()),
+           "vs_plain_mask_share": float((plain["swapped_mask"] != out["swapped_mask"])
+                                        .float().mean()),
+           "tolerance_mean_abs": 0.5,
+           "hole_pixels_512": int(hole.sum()), "outside_soft_mask_pixels": int(outside.sum()),
+           "outside_hole_equal": outside_equal,
+           "disc_outside_pixels": int(disc_outside.sum()), "disc_outside_equal": disc_equal,
+           "disc_inside_mean_change": disc_changed,
+           "driven_changed_share": float((out["driven"] != torch.from_numpy(src).cuda())
+                                         .float().mean()),
+           "changed_vs_target_share": float((image != torch.from_numpy(tgt).cuda())
+                                            .float().mean())}
+    if rec["vs_plain_mean_abs"] > 0.5:
+        problems.append("the call differs from the plain-version call beyond 0.5 levels mean")
+    if not outside_equal or not disc_equal or disc_changed <= 0:
+        problems.append("the inpaint composite changed pixels outside its mask, or none inside")
+    log(f"[zoo] {json.dumps(rec)}")
+
+    # swap_batch at B=4 against four single calls; then larger Bs for memory
+    srcs, tgts = _zoo_inputs(ZOO_BATCH)
+    batch, bms, blaunch, bpeak = _zoo_call(torch, kernels, lambda: pipe.swap_batch(srcs, tgts))
+    singles = torch.stack([pipe(s, t)["image"] for s, t in zip(srcs, tgts)])
+    bdiff = (batch.int() - singles.int()).abs()
+    brec = {"batch": ZOO_BATCH, "ms": bms[0], "swaps_per_s": ZOO_BATCH / bms[0] * 1e3,
+            "peak_mem_gib": bpeak, "vs_single_max_abs": int(bdiff.max()),
+            "vs_single_mean_abs": float(bdiff.float().mean()),
+            "launches": {k: v for k, v in blaunch.items() if v}}
+    if {k: blaunch[k] for k in ZOO_PER_CALL} != ZOO_PER_CALL \
+            or brec["vs_single_mean_abs"] > 0.5 \
+            or batch.shape != (ZOO_BATCH, 1024, 1024, 3):
+        problems.append(f"swap_batch: {brec}")
+    # larger batches: time and peak memory; the largest B under the card's
+    # 80 GB by the slope between the last two (an extrapolation)
+    peaks = {ZOO_BATCH: bpeak}
+    for b in ZOO_BATCH_MEMORY:
+        srcs_b, tgts_b = _zoo_inputs(b)
+        _, ms_b, _, peaks[b] = _zoo_call(torch, kernels, lambda: pipe.swap_batch(srcs_b, tgts_b))
+        brec[f"batch_{b}"] = {"ms": ms_b[0], "swaps_per_s": b / ms_b[0] * 1e3,
+                              "peak_mem_gib": peaks[b]}
+        del srcs_b, tgts_b
+        torch.cuda.empty_cache()
+    (b1, p1), (b2, p2) = sorted(peaks.items())[-2:]
+    slope = (p2 - p1) / (b2 - b1)
+    brec["peak_gib_per_pair"] = slope
+    brec["largest_batch_in_80gb"] = b2 + int((80e9 / 2 ** 30 - p2) // slope)
+    log(f"[zoo] swap_batch {json.dumps(brec)}")
+
+    # one raw-frame call: detection, the zoo swap of the crops, paste-back
+    raw_src, raw_tgt = raw_frames()
+    frame, rms, rlaunch, rpeak = _zoo_call(torch, kernels, lambda: pipe.swap_raw(raw_src, raw_tgt))
+    lm = landmarker(raw_tgt)
+    outside_quad = _outside_quad(torch, swapper, lm, raw_tgt.shape)
+    rrec = {"ms": rms[0], "peak_mem_gib": rpeak, "launches": {k: v for k, v in rlaunch.items()
+                                                              if v},
+            "outside_quad_pixels": int(outside_quad.sum()),
+            "outside_quad_equal": bool(np.array_equal(frame[outside_quad],
+                                                      raw_tgt[outside_quad])),
+            "changed_share": float((frame != raw_tgt).any(-1).mean())}
+    if {k: rlaunch[k] for k in ZOO_PER_CALL} != ZOO_PER_CALL or frame.shape != raw_tgt.shape \
+            or not rrec["outside_quad_equal"] or rrec["changed_share"] == 0:
+        problems.append(f"swap_raw: {rrec}")
+    log(f"[zoo] swap_raw {json.dumps(rrec)}")
+
+    # the classical colour transfers in place of Blender
+    for mode in ZOO_CT_MODES:
+        ct = FullFaceSwapPipeline(swapper, comps,
+                                  FullSwapConfig(ct_mode=mode, face_inpainting=True))
+        cout, cms, claunch, _ = _zoo_call(torch, kernels, lambda: ct(src, tgt)["image"])
+        crec = {"ct_mode": mode, "ms": cms[0], "launches": {k: v for k, v in claunch.items() if v},
+                "vs_blender_mean_abs": float((cout.int() - image.int()).abs().float().mean())}
+        if cout.shape != (1024, 1024, 3) or {k: claunch[k] for k in ZOO_PER_CALL} != ZOO_PER_CALL:
+            problems.append(f"ct_mode {mode}: {crec}")
+        log(f"[zoo] ct_mode {json.dumps(crec)}")
+    problems += _zoo_extras(torch, kernels, swapper, src, tgt)
+    del swapper, pipe, comps, out, plain, batch, singles
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"zoo: {problems}")
+    return rec
+
+
+def _zoo_extras(torch, kernels, swapper, src, tgt):
+    """The zoo's other members once each at published widths (seeded random
+    weights): the CodeFormer and GFPGAN enhancers on the 1024^2 crop, MISF
+    through the inpainting registry on a 256^2 crop with a hole, and the
+    W-space refinement (OPTIMIZE_W_STEPS steps per crop, K1-K3 and their
+    backwards). Returns the problems found."""
+    from e4s2024_torch.models.codeformer import CodeFormer, CodeFormerEnhancer
+    from e4s2024_torch.models.gfpgan import GFPGANEnhancer, GFPGANv1Clean
+    from e4s2024_torch.models.misf import MISFGenerator
+    from e4s2024_torch.pipelines.full_swap import FullFaceSwapPipeline, FullSwapConfig
+    from e4s2024_torch.pipelines.inpaint_registry import make_inpainter
+
+    problems = []
+    torch.manual_seed(SEED + 8)
+    crop = torch.from_numpy(src).cuda()[None].float()
+    for name, enh in (("codeformer", CodeFormerEnhancer(CodeFormer().state_dict(),
+                                                        device="cuda")),
+                      ("gfpgan", GFPGANEnhancer(GFPGANv1Clean().state_dict(), device="cuda"))):
+        out, ms, launches, peak = _zoo_call(torch, kernels, lambda: enh.enhance_aligned(crop))
+        erec = {"enhancer": name, "ms": ms[0], "peak_mem_gib": peak,
+                "launches": {k: v for k, v in launches.items() if v},
+                "finite": bool(torch.isfinite(out).all())}
+        log(f"[zoo] extra {json.dumps(erec)}")
+        if out.shape != crop.shape or not erec["finite"]:
+            problems.append(f"enhancer {name}: {erec}")
+        del enh
+    inp = make_inpainter("misf", MISFGenerator().state_dict(), device="cuda")
+    img01 = crop[:, ::4, ::4] / 255.0
+    hole = torch.zeros(1, 256, 256, 1, device="cuda")
+    hole[:, 80:170, 70:190] = 1.0
+    out, ms, _, _ = _zoo_call(torch, kernels, lambda: inp(img01, hole))
+    kept = bool(torch.equal(out[hole[..., 0] == 0], img01[hole[..., 0] == 0]))
+    log(f"[zoo] extra {json.dumps({'inpainter': 'misf', 'ms': ms[0], 'outside_equal': kept})}")
+    if not kept or not bool(torch.isfinite(out).all()):
+        problems.append("misf: the hole's outside changed, or non-finite output")
+    del inp
+    pipe = FullFaceSwapPipeline(swapper, None, FullSwapConfig(
+        ct_mode="none", optimize_w_steps=OPTIMIZE_W_STEPS))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipe(src, tgt, verbose=True)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    wrec = {"optimize_w_steps": OPTIMIZE_W_STEPS, "ms": (time.perf_counter() - t0) * 1e3,
+            "stage_ms": out["stage_times"], "launches": {k: v for k, v in launches.items() if v}}
+    log(f"[zoo] extra {json.dumps(wrec)}")
+    if out["image"].shape != (1024, 1024, 3) or not all(
+            launches[k] for k in ("fused_leaky_relu_backward", "upfirdn2d_backward",
+                                  "regional_scale_backward")):
+        problems.append(f"optimize_w: {wrec}")
+    torch.cuda.empty_cache()
+    return problems
+
+
 def main() -> int:
     import torch
 
@@ -1242,14 +1555,15 @@ def main() -> int:
     phase_enhance(torch, rgi_sd, bise_sd, sr_sd, "bfloat16")
     raw = phase_raw(torch, rgi_sd, bise_sd, sr_sd)
     video = phase_video(torch, rgi_sd, bise_sd)
+    zoo = phase_zoo(torch, rgi_sd, bise_sd)
 
     # launches: K1-K3 on the aligned swaps of phase 3, the raw-frame calls of
-    # phase 5 and the video clip of phase 6 (which alone runs the backward
-    # kernels), K5 on the enhanced swaps of phases 4 and 5, K4 and K6 on the
-    # upscaler runs of their routes
+    # phase 5, the video clip of phase 6 (which alone runs the backward
+    # kernels) and the zoo swaps of phase 7, K5 on the enhanced swaps of
+    # phases 4 and 5, K4 and K6 on the upscaler runs of their routes
     launches = {name: sum(main_path[m]["launches"][name] for m in main_path)
                 + sum(r["launches"].get(name, 0) for r in raw.values())
-                + video["launches"][name]
+                + video["launches"][name] + zoo["launches"][name]
                 for name in PER_CALL["exact"]}
     launches.update({name: video["launches"][name] for name in BACKWARD})
     launches["fused_swin_block"] = (enhance["launches"]["fused_swin_block"]
@@ -1258,15 +1572,18 @@ def main() -> int:
         kernel = ROUTE_KERNEL[route]
         launches[kernel] = enhance["routes"][route]["launches"][kernel]
 
+    # each kernel's first case, then the cases phase 7 adds
+    picked = [next(r for r in records if r["name"] == name) for name in KERNEL_INFO]
+    picked += [next(r for r in records if (r["name"], r["case"]) == case) for case in ZOO_CASES]
     summary = []
-    for name, (source, replaces) in KERNEL_INFO.items():
-        first = next(r for r in records if r["name"] == name)
+    for rec in picked:
+        source, replaces = KERNEL_INFO[rec["name"]]
         summary.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": first["max_abs_err"], "ms": first["ms"],
-            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
-            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "name": rec["name"], "case": rec["case"], "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[rec["name"]],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
         })
     log(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": summary}), flush=True)

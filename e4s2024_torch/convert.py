@@ -15,10 +15,12 @@ leaves and return flat {reference name: torch.Tensor} dicts that the port's
 modules load with `load_state_dict(strict=True)`.
 
 Reference checkpoints themselves load natively: `load_reference_checkpoint`
-reads a torch file into such a dict, `drop_generator_buffers` takes out the
-fixed buffers a reference generator carries and the port keeps as
-constants, and `fold_bgr_mean_into_stem` gives a RetinaFace checkpoint the
-RGB input the JAX package's converter gives it.
+reads a torch file into such a dict, `drop_generator_buffers` and
+`drop_fir_buffers` take out the fixed buffers a reference generator carries
+and the port keeps as constants, `unwrap_envelope` opens basicsr's
+`params_ema` envelope, `fold_spectral_norm` normalises spectral-norm
+weights once, and `fold_bgr_mean_into_stem` gives a RetinaFace checkpoint
+the RGB input the JAX package's converter gives it.
 """
 
 from __future__ import annotations
@@ -33,6 +35,13 @@ import torch
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+
+
+def as_tensors(state_dict: Mapping) -> dict[str, torch.Tensor]:
+    """A state dict's values as tensors (numpy arrays converted, tensors
+    kept), for `load_state_dict`."""
+    return {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+            for k, v in state_dict.items()}
 
 
 def _linear(p: Mapping, name: str, out: dict) -> None:
@@ -396,28 +405,325 @@ _NOISE_KEY = re.compile(r"(^|\.)noises\.noise_\d+$")
 _FIR_KEY = re.compile(r"\.(blur|upsample)\.kernel$")
 
 
-def drop_generator_buffers(state_dict: Mapping) -> dict:
-    """A reference E4S state dict without the generator's fixed buffers,
-    which the port does not keep as state (`models/stylegan2.py`): the
-    registered noise maps `*.noises.noise_*` (the port, like the JAX
-    package, synthesises without noise) and the FIR `kernel` of every blur
-    and upsample. Each dropped FIR kernel must equal the constant the port
-    uses in its place, make_kernel([1, 3, 3, 1]) x 4 (both run at factor 2);
-    a differing one raises. Every other key is kept, for a strict load."""
+def drop_fir_buffers(state_dict: Mapping, fir_gains, noise=None) -> dict:
+    """A reference state dict without the fixed buffers that the port keeps
+    as constants: the keys matching the `noise` pattern (registered noise
+    maps; the port, like the JAX package, runs without noise) and the FIR
+    `kernel` buffers. `fir_gains` is a list of (pattern, gain): a key that
+    matches a pattern is a FIR buffer that must equal the port's constant
+    make_kernel([1, 3, 3, 1]) x gain; a differing one raises. Every other
+    key is kept, for a strict load."""
     from e4s2024_torch.models.stylegan2 import BLUR_TAPS
     from e4s2024_torch.ops.upfirdn import make_kernel
 
-    fir = make_kernel(BLUR_TAPS) * 4
+    fir_gains = [(re.compile(p) if isinstance(p, str) else p, g) for p, g in fir_gains]
+    noise = re.compile(noise) if isinstance(noise, str) else noise
     out = {}
     for key, value in state_dict.items():
-        if _NOISE_KEY.search(key):
+        if noise is not None and noise.search(key):
             continue
-        if _FIR_KEY.search(key):
+        gain = next((g for pat, g in fir_gains if pat.search(key)), None)
+        if gain is not None:
+            fir = make_kernel(BLUR_TAPS) * gain
             taps = torch.as_tensor(np.asarray(value) if not isinstance(value, torch.Tensor)
                                    else value).float().cpu()
             if taps.shape != fir.shape or not torch.allclose(taps, fir, rtol=0.0, atol=1e-7):
                 raise ValueError(f"{key}: FIR taps {taps.tolist()} differ from the "
-                                 f"generator's constant {fir.tolist()}")
+                                 f"port's constant {fir.tolist()}")
             continue
         out[key] = value
+    return out
+
+
+def drop_generator_buffers(state_dict: Mapping) -> dict:
+    """A reference E4S state dict without the generator's fixed buffers,
+    which the port does not keep as state (`models/stylegan2.py`): the
+    registered noise maps `*.noises.noise_*` and the FIR `kernel` of every
+    blur and upsample, each of which must equal make_kernel([1, 3, 3, 1]) x 4
+    (both run at factor 2; `drop_fir_buffers`)."""
+    return drop_fir_buffers(state_dict, [(_FIR_KEY, 4.0)], _NOISE_KEY)
+
+
+def unwrap_envelope(state_dict: Mapping, *names: str) -> dict:
+    """The weights inside a checkpoint envelope ('params_ema', 'params'):
+    the first name found, as a nested dict or as a key prefix; the dict
+    unchanged when none is found (the JAX package's `unwrap_envelope`)."""
+    for name in names:
+        if isinstance(state_dict.get(name), Mapping):
+            return dict(state_dict[name])
+        p = name + "."
+        if any(k.startswith(p) for k in state_dict):
+            return {k[len(p):]: v for k, v in state_dict.items() if k.startswith(p)}
+    return dict(state_dict)
+
+
+def strip_module_prefix(state_dict: Mapping) -> dict:
+    """Without DDP's 'module.' prefix."""
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in state_dict.items()}
+
+
+def fold_spectral_norm(state_dict: Mapping) -> dict:
+    """A state dict with every spectral-normalised weight replaced by its
+    normalised value, computed once (the JAX converter's `_spectral_conv`):
+    `X.weight_orig`, `X.weight_u` and `X.weight_v` become
+    `X.weight = weight_orig / sigma` with sigma = u . (W_mat v), W_mat the
+    weight flattened to (out, -1). The port keeps no spectral-norm hooks."""
+    out = {}
+    for key, value in state_dict.items():
+        if key.endswith((".weight_u", ".weight_v")):
+            continue
+        if key.endswith(".weight_orig"):
+            stem = key[: -len("_orig")]
+            w = torch.as_tensor(np.asarray(value)) if not isinstance(value, torch.Tensor) else value
+            u, v = (torch.as_tensor(np.asarray(state_dict[f"{stem}_{x}"])) for x in "uv")
+            sigma = torch.dot(u.float(), w.float().reshape(w.shape[0], -1) @ v.float())
+            out[stem] = (w.float() / sigma).to(w.dtype)
+            continue
+        out[key] = value
+    return out
+
+
+# ------------------------------------------------------------------ the zoo
+
+def _convlayer(p: Mapping, name: str, out: dict, downsample: bool = False,
+               activate: bool = True) -> None:
+    """A ConvLayer Sequential: [Blur,] EqualConv2d [, FusedLeakyReLU]."""
+    i = 1 if downsample else 0
+    _conv(p["conv"], f"{name}.{i}", out, key="weight")
+    if activate:
+        out[f"{name}.{i + 1}.bias"] = _t(p["act_bias"])
+
+
+def gpen_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """GPENFullGenerator params -> port GPENFullGenerator state dict in the
+    reference's names (`ecd{i}.0.*`, `final_linear.0`, `generator.*`; the
+    inverse of the layout of `convert_gpen`)."""
+    out: dict[str, torch.Tensor] = {}
+    _generator(params["generator"], "generator.", out)
+    _linear(params["final_linear"], "final_linear.0", out)
+    _convlayer(params["ecd_0"], "ecd0.0", out)
+    for i in range(1, _count(params, "ecd_")):
+        _convlayer(params[f"ecd_{i}"], f"ecd{i}.0", out, downsample=True)
+    return out
+
+
+def rrdbnet_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """RRDBNet params -> port RRDBNet state dict (`conv_first`,
+    `body.{i}.rdb{r}.conv{c}`, `conv_body`, `conv_up1`, `conv_up2`,
+    `conv_hr`, `conv_last`)."""
+    out: dict[str, torch.Tensor] = {}
+    for name in ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr", "conv_last"):
+        _conv(params[name], name, out)
+    for i in range(_count(params, "body_")):
+        for r in (1, 2, 3):
+            for c in range(1, 6):
+                _conv(params[f"body_{i}"][f"rdb{r}"][f"conv{c}"], f"body.{i}.rdb{r}.conv{c}", out)
+    return out
+
+
+def _spade(p: Mapping, name: str, out: dict) -> None:
+    _conv(p["mlp_shared"], f"{name}.mlp_shared.1", out)
+    _conv(p["mlp_gamma"], f"{name}.mlp_gamma", out)
+    _conv(p["mlp_beta"], f"{name}.mlp_beta", out)
+
+
+def _spade_resblock(p: Mapping, name: str, out: dict) -> None:
+    for key in ("norm_0", "norm_1", "norm_s"):
+        if key in p:
+            _spade(p[key], f"{name}.{key}", out)
+    for key in ("conv_0", "conv_1", "conv_s"):
+        if key in p:
+            _conv(p[key], f"{name}.{key}", out)
+
+
+def _unet_res(p: Mapping, name: str, out: dict) -> None:
+    for key in ("bn1", "bn2"):
+        _bn(p[key], f"{name}.{key}", out)
+    for key in ("conv1", "conv2"):
+        _conv(p[key], f"{name}.{key}", out)
+    _conv(p["sqz"], f"{name}.sqz_layer", out)
+
+
+def blender_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Blender params -> port Blender state dict in the reference's names,
+    the spectral-norm weights as their normalised values (`.weight`; the
+    inverse of the layout of `convert_blender`)."""
+    out: dict[str, torch.Tensor] = {}
+    fpn = params["FPN"]
+    for i in range(1, 6):
+        _conv(fpn[f"layer{i}"], f"referencer.FPN.layer{i}.0", out)
+    for key in ("head_0", "G_middle_0", "G_middle_1"):
+        _spade_resblock(fpn[key], f"referencer.FPN.{key}", out)
+    out["referencer.trainable_tao"] = _t(np.asarray(params["trainable_tao"]).reshape(1))
+    u = params["unet"]
+    inp = u["input_encoder_layer"]
+    _conv(inp["conv1"], "unet.input_encoder_layer.conv1", out)
+    _bn(inp["bn1"], "unet.input_encoder_layer.bn1", out)
+    _conv(inp["conv2"], "unet.input_encoder_layer.conv2", out)
+    _conv(inp["sqz"], "unet.input_encoder_layer.sqz_layer", out)
+    for key in ("res_en_layer2", "res_en_layer3", "res_bridge_layer", "res_de_layer3",
+                "res_de_layer2", "res_de_layer1"):
+        _unet_res(u[key], f"unet.{key}", out)
+    _conv(u["output_decoder_layer"], "unet.output_decoder_layer.0", out)
+    return out
+
+
+def _gcfsr_styled(p: Mapping, name: str, out: dict) -> None:
+    _modconv(p["conv"], f"{name}.modulated_conv", out)
+    out[f"{name}.weight"] = _t(p["noise_weight"])
+    out[f"{name}.activate.bias"] = _t(p["act_bias"])
+
+
+def _gcfsr_to_rgb(p: Mapping, name: str, out: dict) -> None:
+    _modconv(p["conv"], f"{name}.modulated_conv", out)
+    out[f"{name}.bias"] = _t(np.asarray(p["bias"]).transpose(0, 3, 1, 2))
+
+
+def gcfsr_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """FaceInpainting params -> port FaceInpainting state dict in basicsr's
+    names (the inverse of the layout of `convert_gcfsr`)."""
+    out: dict[str, torch.Tensor] = {}
+    _convlayer(params["conv_body_first"], "conv_body_first", out)
+    _convlayer(params["final_conv"], "final_conv", out)
+    _convlayer(params["final_down1"], "final_down1", out, downsample=True)
+    _convlayer(params["final_down2"], "final_down2", out, downsample=True)
+    _linear(params["final_linear"], "final_linear", out)
+    _gcfsr_styled(params["style_conv1"], "style_conv1", out)
+    _gcfsr_to_rgb(params["to_rgb1"], "to_rgb1", out)
+    for i in range(_count(params, "conv_body_down_")):
+        _convlayer(params[f"conv_body_down_{i}"], f"conv_body_down.{i}", out, downsample=True)
+    for j in range(_count(params, "condition_scale1_")):
+        _linear(params[f"condition_scale1_{j}"], f"condition_scale1.{j}", out)
+        _linear(params[f"condition_scale2_{j}"], f"condition_scale2.{j}", out)
+        _convlayer(params[f"condition_shift_{j}"], f"condition_shift.{j}", out, activate=False)
+    for k in range(_count(params, "style_convs_")):
+        _gcfsr_styled(params[f"style_convs_{k}"], f"style_convs.{k}", out)
+    for k in range(_count(params, "to_rgbs_")):
+        _gcfsr_to_rgb(params[f"to_rgbs_{k}"], f"to_rgbs.{k}", out)
+    return out
+
+
+def _groupnorm(p: Mapping, name: str, out: dict) -> None:
+    out[f"{name}.weight"] = _t(p["scale"])
+    out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _vq_res(p: Mapping, name: str, out: dict) -> None:
+    for key in ("norm1", "norm2"):
+        _groupnorm(p[key], f"{name}.{key}", out)
+    for key in ("conv1", "conv2", "conv_out"):
+        if key in p:
+            _conv(p[key], f"{name}.{key}", out)
+
+
+def _vq_blocks(p: Mapping, plan, prefix: str, out: dict) -> None:
+    for i, (kind, *_) in enumerate(plan):
+        q, name = p[f"blocks_{i}"], f"{prefix}.blocks.{i}"
+        if kind == "conv":
+            _conv(q, name, out)
+        elif kind == "res":
+            _vq_res(q, name, out)
+        elif kind == "attn":
+            _groupnorm(q["norm"], f"{name}.norm", out)
+            for key in ("q", "k", "v", "proj_out"):
+                _conv(q[key], f"{name}.{key}", out)
+        elif kind in ("down", "up"):
+            _conv(q["conv"], f"{name}.conv", out)
+        else:
+            _groupnorm(q, name, out)
+
+
+def codeformer_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """CodeFormer params -> port CodeFormer state dict in the reference's
+    names (the inverse of the layout of `convert_codeformer`)."""
+    from e4s2024_torch.models import codeformer
+
+    out: dict[str, torch.Tensor] = {}
+    _vq_blocks(params["encoder"], codeformer.encoder_plan(), "encoder", out)
+    _vq_blocks(params["generator"], codeformer.generator_plan(), "generator", out)
+    out["quantize.embedding.weight"] = _t(params["codebook"])
+    out["position_emb"] = _t(params["position_emb"])
+    _linear(params["feat_emb"], "feat_emb", out)
+    for n in range(_count(params, "ft_layers_")):
+        q, name = params[f"ft_layers_{n}"], f"ft_layers.{n}"
+        out[f"{name}.self_attn.in_proj_weight"] = _t(np.asarray(q["qkv_kernel"]).T)
+        out[f"{name}.self_attn.in_proj_bias"] = _t(q["qkv_bias"])
+        _linear(q["out_proj"], f"{name}.self_attn.out_proj", out)
+        for key in ("linear1", "linear2"):
+            _linear(q[key], f"{name}.{key}", out)
+        for key in ("norm1", "norm2"):
+            _layernorm(q[key], f"{name}.{key}", out)
+    _layernorm(params["idx_norm"], "idx_pred_layer.0", out)
+    _linear(params["idx_pred"], "idx_pred_layer.1", out)
+    for key in sorted(k for k in params if k.startswith("fuse_")):
+        q, name = params[key], f"fuse_convs_dict.{key[len('fuse_'):]}"
+        _vq_res(q["encode_enc"], f"{name}.encode_enc", out)
+        for head in ("scale", "shift"):
+            _conv(q[f"{head}_0"], f"{name}.{head}.0", out)
+            _conv(q[f"{head}_2"], f"{name}.{head}.2", out)
+    return out
+
+
+def _clean_modconv(p: Mapping, name: str, out: dict) -> None:
+    out[f"{name}.weight"] = _t(np.asarray(p["weight"]).transpose(3, 2, 0, 1)[None])
+    _linear(p["modulation"], f"{name}.modulation", out)
+
+
+def _clean_layer(p: Mapping, name: str, out: dict) -> None:
+    _clean_modconv(p["conv"], f"{name}.modulated_conv", out)
+    if "noise_weight" in p:
+        out[f"{name}.weight"] = _t(p["noise_weight"])
+    out[f"{name}.bias"] = _t(np.asarray(p["bias"]).transpose(0, 3, 1, 2))
+
+
+def gfpgan_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """GFPGANv1Clean params -> port GFPGANv1Clean state dict in the
+    reference's names (the inverse of the layout of `convert_gfpgan`)."""
+    out: dict[str, torch.Tensor] = {}
+    for name in ("conv_body_first", "final_conv"):
+        _conv(params[name], name, out)
+    _linear(params["final_linear"], "final_linear", out)
+    for stem in ("conv_body_down_", "conv_body_up_"):
+        for i in range(_count(params, stem)):
+            for key in ("conv1", "conv2", "skip"):
+                _conv(params[f"{stem}{i}"][key], f"{stem[:-1]}.{i}.{key}", out)
+    for i in range(_count(params, "conv_body_up_")):
+        for head in ("scale", "shift"):
+            for j in (0, 2):
+                _conv(params[f"condition_{head}_{i}_{j}"], f"condition_{head}.{i}.{j}", out)
+    dec, prefix = params["stylegan_decoder"], "stylegan_decoder"
+    out[f"{prefix}.constant_input.weight"] = _t(
+        np.asarray(dec["constant_input"]).transpose(0, 3, 1, 2))
+    _clean_layer(dec["style_conv1"], f"{prefix}.style_conv1", out)
+    _clean_layer(dec["to_rgb1"], f"{prefix}.to_rgb1", out)
+    for k in range(_count(dec, "style_convs_")):
+        _clean_layer(dec[f"style_convs_{k}"], f"{prefix}.style_convs.{k}", out)
+    for k in range(_count(dec, "to_rgbs_")):
+        _clean_layer(dec[f"to_rgbs_{k}"], f"{prefix}.to_rgbs.{k}", out)
+    return out
+
+
+def misf_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """MISFGenerator params -> port MISFGenerator state dict in the
+    reference's names (the inverse of the layout of `convert_misf`: the
+    flax transposed-convolution kernels flipped back into torch's
+    (in, out, kh, kw))."""
+    out: dict[str, torch.Tensor] = {}
+    for name, ref in (("encoder0", "encoder0.1"), ("encoder1", "encoder1.0"),
+                      ("encoder2", "encoder2.0"), ("decoder2", "decoder.7")):
+        _conv(params[name], ref, out)
+    for name, ref in (("decoder0", "decoder.0"), ("decoder1", "decoder.3")):
+        out[f"{ref}.weight"] = _t(np.asarray(params[name]["kernel"])[::-1, ::-1]
+                                  .transpose(2, 3, 0, 1))
+        out[f"{ref}.bias"] = _t(params[name]["bias"])
+    kpn = params["kpn_model"]
+    for i in (1, 2, 3, 4, 7, 8, 9):
+        for j in range(3):
+            _conv(kpn[f"conv{i}"][f"conv{j}"], f"kpn_model.conv{i}.conv1.{2 * j}", out)
+    _conv(kpn["kernels"], "kpn_model.kernels", out)
+    _conv(kpn["core_img"], "kpn_model.core_img", out)
+    for i in range(_count(params, "middle")):
+        _conv(params[f"middle{i}"]["conv1"], f"middle.{i}.conv_block.1", out)
+        _conv(params[f"middle{i}"]["conv2"], f"middle.{i}.conv_block.5", out)
     return out

@@ -18,9 +18,9 @@ import math
 import torch
 from torch import nn
 
-from e4s2024_torch.ops.fused_act import fused_leaky_relu
+from e4s2024_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
 from e4s2024_torch.ops.modconv import modulated_conv2d, regional_modulated_conv2d
-from e4s2024_torch.ops.upfirdn import make_kernel, upsample_2x
+from e4s2024_torch.ops.upfirdn import blur, make_kernel, upsample_2x
 
 BLUR_TAPS = (1, 3, 3, 1)
 
@@ -181,6 +181,45 @@ class ToRGB(nn.Module):
         if skip is not None:
             out = out + upsample_2x(skip.contiguous(), self.upsample_kernel)
         return out
+
+
+class Blur(nn.Module):
+    """FIR blur with explicit pads (reference model.py:78), kernel K2. The
+    taps are a constant of the module, not state."""
+
+    def __init__(self, taps, pad: tuple[int, int]):
+        super().__init__()
+        self.kernel, self.pad = make_kernel(taps), pad
+
+    def forward(self, x):
+        return blur(x.contiguous(), self.kernel, self.pad)
+
+
+class ScaledLeakyReLU(nn.Module):
+    def forward(self, x):
+        return scaled_leaky_relu(x.contiguous())
+
+
+class ConvLayer(nn.Sequential):
+    """Conv (with a FIR blur and stride 2 when downsampling) and fused
+    LeakyReLU (reference model.py:701). As in the reference the layers are
+    a Sequential: [Blur,] EqualConv2d, FusedLeakyReLU (K1) or, without a
+    bias, ScaledLeakyReLU; the conv has a bias only when not activated."""
+
+    def __init__(self, in_channel: int, out_channel: int, kernel_size: int,
+                 downsample: bool = False, bias: bool = True, activate: bool = True):
+        layers: list[nn.Module] = []
+        if downsample:
+            p = (len(BLUR_TAPS) - 2) + (kernel_size - 1)
+            layers.append(Blur(BLUR_TAPS, ((p + 1) // 2, p // 2)))
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel_size // 2
+        layers.append(EqualConv2d(in_channel, out_channel, kernel_size, stride=stride,
+                                  padding=padding, bias=bias and not activate))
+        if activate:
+            layers.append(FusedLeakyReLU(out_channel) if bias else ScaledLeakyReLU())
+        super().__init__(*layers)
 
 
 class ConstantInput(nn.Module):

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from e4s2024_torch import resolve_device
+from e4s2024_torch.convert import as_tensors
 from e4s2024_torch.ops.resize import resize_bilinear, resize_nearest
 from e4s2024_torch.ops.swin_block import (
     block_weights, fused_swin_block, pack_block_weights)
@@ -327,10 +328,6 @@ def apply_fused(model: SwinIR, x: torch.Tensor) -> torch.Tensor:
     return model._tail(feat, body)
 
 
-def _tensor_dict(state: Mapping) -> dict[str, torch.Tensor]:
-    return {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-            for k, v in state.items()}
-
 
 class SwinIRUpscaler:
     """x4 upscale of [0, 255] images with padding to the window (reference
@@ -356,7 +353,7 @@ class SwinIRUpscaler:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
         self.device = resolve_device(device)
         self.model = SwinIR(**arch, dtype=_DTYPES[compute_dtype], use_kernel=use_kernel)
-        self.model.load_state_dict(_tensor_dict(state_dict), strict=True)
+        self.model.load_state_dict(as_tensors(state_dict), strict=True)
         self.model.to(self.device).eval().requires_grad_(False)
         self.fused = fused
 

@@ -146,3 +146,37 @@ def soft_erosion_planar(t: torch.Tensor, kernel_size: int = 15,
     below_max = torch.where(hard, 0.0, x).amax(dim=(2, 3), keepdim=True)
     out = torch.where(hard, 1.0, x / torch.clamp(below_max, min=1e-8))
     return out, hard
+
+
+def soft_erosion(x: torch.Tensor, kernel_size: int = 15, threshold: float = 0.6,
+                 iterations: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """`soft_erosion_planar` on (B, H, W, C) masks, the JAX package's
+    `soft_erosion` (a dense cone convolution there, its exact separable SVD
+    terms here)."""
+    soft, hard = soft_erosion_planar(x.permute(0, 3, 1, 2), kernel_size, threshold, iterations)
+    return soft.permute(0, 2, 3, 1), hard.permute(0, 2, 3, 1)
+
+
+_SOBEL_X = ((-1.0, 0.0, 1.0), (-2.0, 0.0, 2.0), (-1.0, 0.0, 1.0))
+
+
+def sobel_edge(img: torch.Tensor) -> torch.Tensor:
+    """|Sobel_x| + |Sobel_y| edge magnitude of an RGB image in [0, 255],
+    each clipped to 255, then weighted to grey (reference
+    paste_back_tricks.py:157-171, before its blur and gain). img:
+    (B, 3, H, W) -> (B, 1, H, W); reflect padding, cross-correlation."""
+    c = img.shape[1]
+    kx = torch.tensor(_SOBEL_X, device=img.device, dtype=img.dtype)
+    k = torch.stack([kx, kx.t()])[:, None].repeat(c, 1, 1, 1)  # (2c, 1, 3, 3)
+    edges = F.conv2d(F.pad(img, [1, 1, 1, 1], mode="reflect"), k, groups=c)
+    edges = torch.clamp(edges.abs(), 0, 255).unflatten(1, (c, 2)).sum(2)
+    gray = torch.tensor((0.299, 0.587, 0.114), device=img.device, dtype=img.dtype)
+    return (edges * gray.view(1, -1, 1, 1)).sum(1, keepdim=True)
+
+
+def blend_with_mask(bottom: torch.Tensor, up: torch.Tensor, up_mask: torch.Tensor,
+                    up_ratio: float = 1.0) -> torch.Tensor:
+    """bottom * (1 - m) + up * m with m = up_mask * up_ratio, NaNs in the
+    mask zeroed (reference paste_back_tricks.py:131-148)."""
+    m = torch.nan_to_num(up_mask, nan=0.0) * up_ratio
+    return bottom * (1.0 - m) + up * m

@@ -1,25 +1,41 @@
 """Face swap with the auxiliary models around the core swap.
 
 Counterpart of `e4s2024_tpu/pipelines/full_swap.py` (the reference's
-`FaceSwap.face_swap_pipeline`, Face_swap_with_two_imgs.py:796), in its
-staged form on pre-aligned crops:
+`FaceSwap.face_swap_pipeline`, Face_swap_with_two_imgs.py:796), on
+pre-aligned crops, B pairs at a time:
 
-  1. enhancement of the driven crop (`components.enhancers`, reference
-     :606-643): "gpen" when given, else `cfg.enhancement_mode`; an absent
-     enhancer is the identity,
-  2. the core swap, `FaceSwapper.swap_aligned`, which truncates the float
-     enhanced crop to uint8 as the JAX swapper does,
-  3. packaging to uint8.
+  1. pose_align: the identity (the pose driver is not ported),
+  2. enhance: restoration of the driven crop (`components.enhancers`,
+     reference :606-643): "gpen" when given, else `cfg.enhancement_mode`;
+     an absent enhancer is the identity,
+  3. core_swap: parse, invert, merge, synthesise, composite
+     (`FaceSwapper`),
+  4. parse19 and recolor: the 19-class parse of the driven and target
+     crops, the Blender recolor at 256^2 (`models/blender.py`), RealESRGAN
+     x4 back up (`models/rrdb.py`) and the edge-aware blend (reference
+     :522-560, :910-924); or a classical `ct_mode` (`ops/color.py`),
+  5. inpaint: with `face_inpainting`, GCFSR completion of the hole
+     (`models/gcfsr.py`) and a soft-eroded composite (reference :223-258),
+  6. package: uint8.
 
-`swap_raw` and `swap_raw_multi` run it from raw frames through
-`FaceSwapper.swap` / `swap_all`.
+The JAX pipeline runs a configuration whose components all have a fused
+form (GPEN, Blender, RealESRGAN, GCFSR: `fused_form`) as one program, in
+which the enhanced float crop enters the core swap as it is; otherwise
+(the SwinIR enhancer, a classical ct_mode, W-space refinement) it runs
+stage by stage, and the swap truncates the enhanced crop to uint8. The
+port runs the stages in both cases and follows that rule for the crop, so
+that each configuration computes what JAX's default call computes.
 
-Ported so far: the enhancers (the SwinIR enhancer of `models/swinir.py`, or
-any callable with its contract). Not yet ported, and refused with
-NotImplementedError when asked for: the pose driver, the recolorer, the
-upscaler, the inpainter, W-space refinement (`optimize_w_steps > 0`) and the
-classical `ct_mode`s. `ct_mode="blender"` without a recolorer and
-`face_inpainting` without an inpainter are the identity, as in JAX.
+`swap_batch` runs B pairs through every stage as one batch, in chunks of
+`cfg.max_fused_batch` (None: the whole batch, as in JAX). `swap_raw` and
+`swap_raw_multi` run it from raw frames through `FaceSwapper.swap` /
+`swap_all`.
+
+With `optimize_w_steps > 0` the core swap refines both crops' style
+vectors first (`_swap_with_optimized_w`, stage "optimize_w_swap"). Not yet
+ported, and refused with NotImplementedError: the pose driver.
+`ct_mode="blender"` without a recolorer and `face_inpainting` without an
+inpainter are the identity, as in JAX.
 """
 
 from __future__ import annotations
@@ -27,9 +43,15 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
+import numpy as np
 import torch
 
+from e4s2024_torch.ops import color
+from e4s2024_torch.ops.blend import blend_with_mask, sobel_edge, soft_erosion_planar
+from e4s2024_torch.ops.resize import resize_bilinear
 from e4s2024_torch.pipelines.swap import FaceSwapper
+
+CT_MODES = ("none", "blender") + color.DEVICE_MODES + color.HOST_MODES
 
 
 @dataclass
@@ -39,9 +61,9 @@ class SwapComponents:
     enhancers: dict = field(default_factory=dict)  # name -> enhance_aligned fn
     pose_driver: Any = None
     pose_estimator: Any = None
-    recolorer: Any = None
-    upscaler: Any = None
-    inpainter: Any = None
+    recolorer: Any = None          # BlenderRecolorer-like .recolor(...)
+    upscaler: Any = None           # RealESRGANUpscaler-like .upscale(img255)
+    inpainter: Any = None          # FaceInpainter-like .inpaint(img255, hole)
     loss_params: dict = field(default_factory=dict)
 
 
@@ -53,68 +75,248 @@ class FullSwapConfig:
     face_inpainting: bool = False
     optimize_w_steps: int = 0
     optimize_w_lr: float = 1e-2
-    blend_up_ratio: float = 0.75
+    blend_up_ratio: float = 0.75       # edge-aware recolor blend (:910-924)
+    # the most pairs `swap_batch` runs through the stages at once; None: the
+    # whole batch, as in JAX. At 1024^2 the default config's peak memory
+    # grows with B (PERF.md gives the largest B that fits the card).
     max_fused_batch: int | None = None
 
 
+def _owner(fn):
+    return getattr(fn, "__self__", fn)
+
+
 class FullFaceSwapPipeline:
-    """Enhanced face swap on aligned crops. Results are tensors on the
-    swapper's device."""
+    """The zoo-enhanced face swap on aligned crops. Results are tensors on
+    the swapper's device."""
 
     def __init__(self, swapper: FaceSwapper, components: SwapComponents | None = None,
                  cfg: FullSwapConfig | None = None):
         self.swapper = swapper
         self.comp = SwapComponents() if components is None else components
         self.cfg = FullSwapConfig() if cfg is None else cfg
-        missing = [name for name in ("pose_driver", "recolorer", "upscaler", "inpainter")
-                   if getattr(self.comp, name) is not None]
-        if self.cfg.optimize_w_steps > 0:
-            missing.append("optimize_w_steps > 0")
-        if self.cfg.ct_mode not in ("none", "blender"):
-            missing.append(f"ct_mode={self.cfg.ct_mode!r}")
-        if missing:
+        if self.comp.pose_driver is not None:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(missing)}; the port runs the enhancers "
-                "and the core swap")
+                "not ported yet: pose_driver; the port runs the enhancers, W-space "
+                "refinement, the recolor and the inpainting around the core swap")
+        if self.cfg.ct_mode not in CT_MODES:
+            raise ValueError(f"unknown ct_mode {self.cfg.ct_mode!r}")
+
+    # ---------------- stages ----------------
+
+    def _enhance_mode(self) -> str:
+        return "gpen" if "gpen" in self.comp.enhancers else self.cfg.enhancement_mode
+
+    def _fused(self) -> bool:
+        """Whether JAX's default call runs this configuration as its one
+        program (`_maybe_build_fused`): no host-side stage, and every present
+        component with a fused form. There the enhanced crop enters the swap
+        as float; otherwise the swap truncates it to uint8."""
+        cfg, comp = self.cfg, self.comp
+        if cfg.optimize_w_steps > 0 or comp.pose_driver is not None \
+                or cfg.ct_mode not in ("none", "blender"):
+            return False
+        enh = comp.enhancers.get(self._enhance_mode())
+        parts = [enh] if enh is not None else []
+        if cfg.ct_mode == "blender" and comp.recolorer is not None:
+            parts += [comp.recolorer] + ([comp.upscaler] if comp.upscaler is not None else [])
+        if cfg.face_inpainting and comp.inpainter is not None:
+            parts.append(comp.inpainter)
+        return all(getattr(_owner(p), "fused_form", False) for p in parts)
 
     def _enhance(self, img255: torch.Tensor, mode: str | None = None) -> torch.Tensor:
-        """Stage 3: face restoration of one (S, S, 3) crop (reference
-        :606-643); the identity when no enhancer serves the mode."""
+        """Face restoration of (B, S, S, 3) crops (reference :606-643); the
+        identity when no enhancer serves the mode."""
         fn = self.comp.enhancers.get(mode or self.cfg.enhancement_mode)
         if fn is None:
             return img255
-        return fn(img255.float()[None])[0]
+        return fn(img255.float())
 
-    def __call__(self, source_crop255, target_crop255,
+    def _core_swap(self, driven: torch.Tensor, target: torch.Tensor, fused: bool) -> dict:
+        """The core swap. Where the float driven crop enters it (`fused`), its
+        parse is the 19-class parse the recolor reads, kept as `labels19`."""
+        sw = self.swapper
+        if not fused:
+            return sw.swap_aligned(driven, target)
+        b = driven.shape[0]
+        masks, sv, labels19 = sw._parse_invert(torch.cat([driven.float(), target.float()]),
+                                               with_labels19=True)
+        result = sw._merge_synth_composite(masks[:b], masks[b:], sv[:b], sv[b:], target)
+        result["labels19"] = labels19
+        return result
+
+    def _swap_with_optimized_w(self, driven255: torch.Tensor,
+                               target255: torch.Tensor) -> dict:
+        """The core swap with per-image W-space refinement (reference
+        :483-507): both crops' style vectors refined against the
+        reconstruction criterion (`training/optim.py`; LPIPS 0.8, ID 0.1,
+        face parsing 0.1 and L2 1.0 for the nets in `loss_params`, L2 alone
+        without them), inverted with the full-resolution one-hot as JAX
+        does, then merged and synthesised. The float driven crops are read
+        as they are, as in JAX. Pairs run one after the other."""
+        from e4s2024_torch.losses.recon import ReconCriterion
+        from e4s2024_torch.training.optim import optimize_style_vectors
+
+        sw = self.swapper
+        crit = ReconCriterion(self.comp.loss_params, device=sw.device)
+        out = []
+        for d, t in zip(driven255.float(), target255):
+            masks, _ = sw._parse_invert(torch.stack([d, t.float()]))
+            onehot = torch.nn.functional.one_hot(masks, sw.cfg.num_seg_cls)
+            onehot = onehot.permute(0, 3, 1, 2).to(sw.dtype)
+            svs = []
+            for i, img255 in enumerate((d, t.float())):
+                img = (img255.permute(2, 0, 1)[None] / 127.5 - 1.0).to(sw.dtype)
+                sv, _ = optimize_style_vectors(
+                    sw.rgi, crit, img, onehot[i:i + 1], steps=self.cfg.optimize_w_steps,
+                    lr=self.cfg.optimize_w_lr)
+                svs.append(sv)
+            out.append(sw._merge_synth_composite(masks[0:1], masks[1:2], svs[0], svs[1],
+                                                 t[None]))
+        return {k: torch.cat([o[k] for o in out]) for k in out[0]}
+
+    def _parse19(self, driven: torch.Tensor, target: torch.Tensor, result: dict):
+        """19-class labels (B, 512, 512) of the driven and target crops: the
+        core swap's own parse where it read the same float crops, else a parse
+        of the float driven crop and the target (JAX's staged path)."""
+        both = result.get("labels19")
+        if both is None:
+            both = self.swapper._parse19(
+                torch.cat([driven.float(), target.float()]).permute(0, 3, 1, 2) / 255.0)
+        return both[:driven.shape[0]], both[driven.shape[0]:]
+
+    def _recolor_composite(self, rec: torch.Tensor, swapped255: torch.Tensor) -> torch.Tensor:
+        """Edge-aware composite of the recolor (B, h, h, 3) onto the swap
+        (B, H, H, 3) (reference :910-924): the recolor resized to H, the swap
+        kept where its Sobel edges are strong."""
+        h = swapped255.shape[1]
+        rec = resize_bilinear(rec.permute(0, 3, 1, 2), (h, h))
+        swapped = swapped255.float().permute(0, 3, 1, 2)
+        edge = torch.clamp(sobel_edge(swapped) / 255.0, 0.0, 1.0)
+        out = blend_with_mask(rec, swapped, edge, up_ratio=self.cfg.blend_up_ratio)
+        return torch.clamp(out, 0, 255).permute(0, 2, 3, 1)
+
+    def _recolor(self, swapped255, target255, d_label19=None, t_label19=None) -> torch.Tensor:
+        """Blender at 256^2, RealESRGAN x4 where 4x the recolor fits in the
+        crop, the edge-aware blend (reference :522-560, :910-924); or a
+        classical colour transfer, per pair."""
+        cfg = self.cfg
+        if cfg.ct_mode == "none":
+            return swapped255
+        if cfg.ct_mode == "blender":
+            if self.comp.recolorer is None:
+                return swapped255
+            rec = self.comp.recolorer.recolor(swapped255, target255, d_label19, t_label19)
+            if self.comp.upscaler is not None and rec.shape[1] * 4 <= swapped255.shape[1]:
+                rec = self.comp.upscaler.upscale(rec)
+            return self._recolor_composite(rec, swapped255)
+        out = []
+        for s, t in zip(swapped255, target255):
+            if cfg.ct_mode in color.DEVICE_MODES:
+                gen = torch.Generator(device=s.device).manual_seed(0)
+                r = color.skin_color_transfer(s.float() / 255.0, t.float() / 255.0,
+                                              cfg.ct_mode, generator=gen)
+            else:  # numpy on the host: the swap in float32, the target in float64
+                r = torch.from_numpy(np.asarray(color.skin_color_transfer(
+                    s.float().cpu().numpy() / 255.0, t.cpu().numpy() / 255.0, cfg.ct_mode),
+                    np.float32)).to(s.device)
+            out.append(r * 255.0)
+        return torch.stack(out)
+
+    def _inpaint_soft_mask(self, hole_mask: torch.Tensor, size: int) -> torch.Tensor:
+        """The composite's mask (B, 1, size, size): the hole resized
+        bilinearly and soft-eroded (zero wherever the cone filter does not
+        reach the hole)."""
+        mask = resize_bilinear(hole_mask.float()[:, None], (size, size))
+        return soft_erosion_planar(mask)[0]
+
+    def _inpaint_composite(self, img255, out, hole_mask) -> torch.Tensor:
+        """Soft-eroded composite of the inpainted face into the hole
+        (reference :223-258): (B, H, H, 3) x (B, Hm, Wm). Where the soft mask
+        is 0 the image keeps its value exactly."""
+        soft = self._inpaint_soft_mask(hole_mask, img255.shape[1]).permute(0, 2, 3, 1)
+        return torch.clamp(blend_with_mask(img255.float(), out, soft, 1.0), 0, 255)
+
+    def _inpaint(self, img255: torch.Tensor, hole_mask: torch.Tensor) -> torch.Tensor:
+        """GCFSR completion of the hole and the soft composite."""
+        if not self.cfg.face_inpainting or self.comp.inpainter is None:
+            return img255
+        out = self.comp.inpainter.inpaint(img255, hole_mask)
+        return self._inpaint_composite(img255, out, hole_mask)
+
+    # ---------------- entry points ----------------
+
+    def _run(self, src: torch.Tensor, tgt: torch.Tensor, timer=None,
+             intermediates: bool = False) -> dict:
+        """Every stage on (B, S, S, 3) uint8 crops on the device."""
+        def timed(name, fn, *a):
+            if timer is None:
+                return fn(*a)
+            with timer.stage(name):
+                return fn(*a)
+
+        cfg, comp = self.cfg, self.comp
+        fused = self._fused()
+        driven = timed("pose_align", lambda x: x, src)
+        driven = timed("enhance", self._enhance, driven,
+                       "gpen" if "gpen" in comp.enhancers else None)
+        if cfg.optimize_w_steps > 0:
+            result = timed("optimize_w_swap", self._swap_with_optimized_w, driven, tgt)
+        else:
+            result = timed("core_swap", self._core_swap, driven, tgt, fused)
+        swapped = result["image"].float()
+        if cfg.ct_mode == "blender" and comp.recolorer is not None:
+            d19, t19 = timed("parse19", self._parse19, driven, tgt, result)
+            swapped = timed("recolor", self._recolor, swapped, tgt, d19, t19)
+        elif cfg.ct_mode not in ("none", "blender"):
+            swapped = timed("recolor", self._recolor, swapped, tgt)
+        swapped = timed("inpaint", self._inpaint, swapped, result["hole_mask"])
+        return timed("package", self._package, swapped, driven, result, intermediates)
+
+    def __call__(self, source_crop255, target_crop255, verbose: bool = False, timer=None,
                  return_intermediates: bool = False) -> dict:
         """Swap one pair of aligned (S, S, 3) crops. Returns {"image": (S, S, 3)
         uint8}; `return_intermediates` adds the driven crop (uint8) and the
-        swap's `swapped_mask` (uint8) and `hole_mask`."""
+        swap's `swapped_mask` (uint8) and `hole_mask`. With `timer` (a
+        `pipelines.video.StageTimer`) or `verbose`, each stage ends in a
+        device synchronisation and the result carries `stage_times` (ms by
+        stage: pose_align, enhance, core_swap, parse19, recolor, inpaint,
+        package)."""
+        if timer is None and verbose:
+            from e4s2024_torch.pipelines.video import StageTimer
+
+            timer = StageTimer()
         sw = self.swapper
         with torch.inference_mode():
-            src, tgt = sw._as_u8(source_crop255), sw._as_u8(target_crop255)
-            driven = self._enhance(src, "gpen" if "gpen" in self.comp.enhancers else None)
-            result = sw.swap_aligned(driven.float()[None], tgt.float()[None])
-            swapped = result["image"][0].float()
-            return self._package(swapped, driven, result, return_intermediates)
+            src, tgt = sw._as_u8(source_crop255)[None], sw._as_u8(target_crop255)[None]
+            out = {k: v[0] for k, v in self._run(src, tgt, timer, return_intermediates).items()}
+        if timer is not None:
+            out["stage_times"] = dict(timer.times)
+        return out
 
     def swap_batch(self, source_crops255, target_crops255) -> torch.Tensor:
-        """Swap B aligned pairs, (B, S, S, 3) -> (B, S, S, 3) uint8, one staged
-        swap per pair (the JAX pipeline's path for an enhancer that has no
-        fused form, as the SwinIR enhancer has none)."""
-        return torch.stack([self(s, t)["image"]
-                            for s, t in zip(source_crops255, target_crops255)])
+        """Swap B aligned pairs, (B, S, S, 3) -> (B, S, S, 3) uint8: every
+        stage runs on the batch, in chunks of `cfg.max_fused_batch` pairs
+        (the whole batch when None)."""
+        sw = self.swapper
+        with torch.inference_mode():
+            src, tgt = sw._as_u8(source_crops255), sw._as_u8(target_crops255)
+            b = src.shape[0]
+            chunk = b if self.cfg.max_fused_batch is None else max(1, self.cfg.max_fused_batch)
+            return torch.cat([self._run(src[i:i + chunk], tgt[i:i + chunk])["image"]
+                              for i in range(0, b, chunk)])
 
     def swap_raw(self, source_img, target_img):
         """Raw-frame entry: detection and alignment (the swapper's landmark
-        stack), the enhanced swap on the crops, perspective paste-back — the
-        reference's `FaceSwap.face_swap_pipeline` from unaligned images.
+        stack), the zoo-enhanced swap on the crops, perspective paste-back —
+        the reference's `FaceSwap.face_swap_pipeline` from unaligned images.
         Returns the (H, W, 3) uint8 numpy frame."""
         return self.swapper.swap(source_img, target_img, swap_fn=self.swap_batch)
 
     def swap_raw_multi(self, source_img, target_img, **kw):
         """The source identity onto every face detected in the target frame,
-        each through the enhanced swap (`FaceSwapper.swap_all`)."""
+        all crops through the zoo-enhanced swap as one batch
+        (`FaceSwapper.swap_all`)."""
         return self.swapper.swap_all(source_img, target_img, swap_fn=self.swap_batch, **kw)
 
     def _package(self, swapped, driven, result, intermediates: bool = False) -> dict:
@@ -122,7 +324,7 @@ class FullFaceSwapPipeline:
         if intermediates:
             out.update({
                 "driven": torch.clamp(driven.float(), 0, 255).to(torch.uint8),
-                "swapped_mask": result["swapped_mask"][0].to(torch.uint8),
-                "hole_mask": result["hole_mask"][0],
+                "swapped_mask": result["swapped_mask"].to(torch.uint8),
+                "hole_mask": result["hole_mask"],
             })
         return out

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from e4s2024_torch import resolve_device
-from e4s2024_torch.convert import drop_generator_buffers
+from e4s2024_torch.convert import as_tensors, drop_generator_buffers
 from e4s2024_torch.data.labels import FFHQ_TO_12, NUM_SEG_CLASSES, map_labels
 from e4s2024_torch.models.bisenet import BiSeNet, bicubic_downsample
 from e4s2024_torch.models.rgi import RGINet
@@ -66,10 +66,6 @@ class SwapConfig:
     # dtype of the nets ("bfloat16" or "float32"); compositing is float32
     compute_dtype: str = "float32"
 
-
-def _tensor_dict(state: Mapping) -> dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(np.asarray(v)) if not isinstance(v, torch.Tensor) else v
-            for k, v in state.items()}
 
 
 class FaceSwapper:
@@ -107,10 +103,10 @@ class FaceSwapper:
         self.rgi = RGINet(num_seg_cls=config.num_seg_cls, out_size=config.out_size,
                           remaining_layer_idx=config.remaining_layer_idx,
                           encoder_num_units=encoder_num_units)
-        self.rgi.load_state_dict(_tensor_dict(drop_generator_buffers(rgi_state_dict)),
+        self.rgi.load_state_dict(as_tensors(drop_generator_buffers(rgi_state_dict)),
                                  strict=True)
         self.bisenet = BiSeNet()
-        self.bisenet.load_state_dict(_tensor_dict(bisenet_state_dict), strict=True)
+        self.bisenet.load_state_dict(as_tensors(bisenet_state_dict), strict=True)
         for net in (self.rgi, self.bisenet):
             net.to(device=self.device, dtype=self.dtype).eval().requires_grad_(False)
         keep = set(config.keep_target_components)
@@ -152,13 +148,16 @@ class FaceSwapper:
         onehot = F.one_hot(labels, self.cfg.num_seg_cls).permute(0, 3, 1, 2)
         return onehot.to(self.dtype).contiguous()
 
-    def _parse_invert(self, pair255: torch.Tensor):
-        """Stages 1-2 on the (2B, S, S, 3) uint8 pair batch."""
+    def _parse_invert(self, pair255: torch.Tensor, with_labels19: bool = False):
+        """Stages 1-2 on the (2B, S, S, 3) uint8 (or float [0, 255]) pair
+        batch: (12-class masks, style vectors), and with `with_labels19` the
+        19-class labels the masks were mapped from."""
         img01 = pair255.permute(0, 3, 1, 2).float() / 255.0
-        masks = self._parse12(img01)
+        labels19 = self._parse19(img01)
+        masks = map_labels(labels19, FFHQ_TO_12)
         onehot = self._onehot_for_model(masks)
         sv, _ = self.rgi.get_style_vectors((img01 * 2.0 - 1.0).to(self.dtype), onehot)
-        return masks, sv
+        return (masks, sv, labels19) if with_labels19 else (masks, sv)
 
     def _composite(self, swapped_pm1, target_pm1, swapped_msk, hole_mask):
         """Content paste plus multi-band border blend (reference _past_back,

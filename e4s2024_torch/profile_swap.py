@@ -1,7 +1,7 @@
 """Where the time of one swap goes, on a CUDA card.
 
     python -m e4s2024_torch.profile_swap [--mode exact|fast] [--dtype float32|bfloat16]
-                                         [--enhance | --raw | --video]
+                                         [--enhance | --raw | --video | --zoo]
 
 Builds FaceSwapper at the default configuration (1024^2 output, full
 encoder and parser) with seeded random weights (with --enhance, inside
@@ -19,6 +19,13 @@ a 1280x960 source onto a 1920x1080 target), warms it up, then:
    streams would count twice, the swap uses one), the kernels that take
    the most device time, and the calls and device time per swap of K2
    (`upfirdn2d_kernel`) and K3 (`regional_scale_kernel`).
+
+With --zoo it profiles the zoo-enhanced swap, `FullFaceSwapPipeline` at
+the reference's default configuration (`zoo_components`: GPEN-512, Blender
+with RealESRGAN x4, GCFSR inpainting) over the float32 swapper: step 1
+reports the pipeline's own stages from its `timer` hook (pose_align,
+enhance, core_swap, parse19, recolor, inpaint, package), step 2 as above,
+with the peak device memory.
 
 With --video it runs the video swap instead, `FaceSwapVideoPipeline` over
 the float32 swapper and the default landmark stack on `video_clip`'s 8-frame
@@ -137,6 +144,27 @@ def loss_nets(device, seed: int = 4) -> dict:
     return {k: v.to(device).eval().requires_grad_(False) for k, v in nets.items()}
 
 
+def zoo_components(device, seed: int = 5) -> SwapComponents:
+    """The reference's default zoo at its published widths with PyTorch's
+    seeded default initialisation: GPEN-512 (channel multiplier 2, narrow
+    1; its concat-noise weights set to 0.1, so that the encoder's features
+    reach the decoder as in a trained net) as the "gpen" enhancer, the
+    Blender recolorer, RealESRGAN RRDBNet 64/23/32 and GCFSR at 256."""
+    from e4s2024_torch.models.blender import Blender, BlenderRecolorer
+    from e4s2024_torch.models.gcfsr import FaceInpainter, FaceInpainting
+    from e4s2024_torch.models.gpen import GPENEnhancer, GPENFullGenerator
+    from e4s2024_torch.models.rrdb import RealESRGANUpscaler, RRDBNet
+
+    torch.manual_seed(seed)
+    gpen = {k: v.fill_(0.1) if k.endswith("noise.weight") else v
+            for k, v in GPENFullGenerator().state_dict().items()}
+    return SwapComponents(
+        enhancers={"gpen": GPENEnhancer(gpen, device=device).enhance_aligned},
+        recolorer=BlenderRecolorer(Blender().state_dict(), device=device),
+        upscaler=RealESRGANUpscaler(RRDBNet().state_dict(), device=device),
+        inpainter=FaceInpainter(FaceInpainting().state_dict(), device=device))
+
+
 def profile_video(args) -> None:
     """The video swap at the JAX package's tuning defaults, stage by stage."""
     from e4s2024_torch.pipelines.video import FaceSwapVideoPipeline, StageTimer, VideoSwapConfig
@@ -213,9 +241,12 @@ def main() -> None:
                     help="the raw-frame swap (FaceSwapper.swap with the default landmark stack)")
     ap.add_argument("--video", action="store_true",
                     help="the video swap with PTI and stitching (FaceSwapVideoPipeline)")
+    ap.add_argument("--zoo", action="store_true",
+                    help="the zoo-enhanced swap at the default FullSwapConfig (GPEN, Blender + "
+                         "RealESRGAN, GCFSR inpainting)")
     args = ap.parse_args()
-    if args.enhance + args.raw + args.video > 1:
-        ap.error("--enhance, --raw and --video profile different swaps; pick one")
+    if args.enhance + args.raw + args.video + args.zoo > 1:
+        ap.error("--enhance, --raw, --video and --zoo profile different swaps; pick one")
     if not torch.cuda.is_available():
         raise SystemExit("profile_swap: no CUDA device is available")
     torch.backends.cudnn.allow_tf32 = False
@@ -243,13 +274,28 @@ def main() -> None:
         sw.landmark_fn = detect.default_landmarker()
         source, frame = raw_frames()
         swap = lambda: sw.swap(source, frame)  # noqa: E731
+    if args.zoo:
+        if args.dtype != "float32":
+            ap.error("--zoo runs the float32 swapper (the zoo's nets are float32)")
+        pipe = FullFaceSwapPipeline(sw, zoo_components(sw.device),
+                                    FullSwapConfig(face_inpainting=True))
+        swap = lambda: pipe(driven[0], target[0])  # noqa: E731
     for _ in range(2):
         swap()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     stages: dict = {}
     for _ in range(args.requests):
         d = driven
+        if args.zoo:
+            from e4s2024_torch.pipelines.video import StageTimer
+
+            timer = StageTimer()
+            pipe(driven[0], target[0], timer=timer)
+            for name, ms in timer.times.items():
+                stages.setdefault(name, {"host_ms": 0.0, "device_ms": None})["host_ms"] += ms
+            continue
         if enhance is not None:
             with torch.inference_mode():
                 d = _timed(stages, "enhance (SwinIR-M x4, resize back)",
@@ -260,7 +306,8 @@ def main() -> None:
             staged_swap(sw, d, target, stages)
     for name, rec in stages.items():
         print(json.dumps({"stage": name, "host_ms": rec["host_ms"] / args.requests,
-                          "device_ms": rec["device_ms"] / args.requests}))
+                          "device_ms": None if rec["device_ms"] is None
+                          else rec["device_ms"] / args.requests}))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -285,6 +332,8 @@ def main() -> None:
     groups = ["upfirdn2d_kernel", "regional_scale_kernel"]
     if args.enhance:
         groups += ["swin_block_kernel", "roll_cuda"]
+    if args.zoo:
+        groups += ["fused_leaky_relu_kernel"]
     for group in groups:
         hits = [e for e in events if group in e.key]
         print(json.dumps({
@@ -292,7 +341,8 @@ def main() -> None:
             "device_ms_per_swap": sum(e.self_device_time_total for e in hits) / 1e3
             / args.requests}))
     print(json.dumps({"mode": args.mode, "dtype": args.dtype, "enhance": args.enhance,
-                      "raw": args.raw,
+                      "raw": args.raw, "zoo": args.zoo,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                       "card": torch.cuda.get_device_name(0),
                       "wall_ms_per_swap_traced": wall_ms, "device_busy_ms_per_swap": device_ms,
                       "device_busy_share": device_ms / wall_ms}))

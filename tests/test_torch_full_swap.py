@@ -113,14 +113,17 @@ def test_swap_batch_matches_jax(pipelines):
 
 def test_unported_components_raise(pipelines):
     _, pipe = pipelines
-    for comp, cfg in [(SwapComponents(pose_driver=object()), None),
-                      (SwapComponents(recolorer=object()), None),
+    with pytest.raises(NotImplementedError):
+        FullFaceSwapPipeline(pipe.swapper, SwapComponents(pose_driver=object()))
+    # the recolorer, the upscaler, the inpainter, the classical ct_modes and
+    # W-space refinement are ported (tests/test_torch_default_swap.py,
+    # test_torch_batch_swap.py, test_torch_optim.py)
+    for comp, cfg in [(SwapComponents(recolorer=object()), None),
                       (SwapComponents(upscaler=object()), None),
                       (SwapComponents(inpainter=object()), None),
                       (None, FullSwapConfig(optimize_w_steps=5)),
                       (None, FullSwapConfig(ct_mode="rct"))]:
-        with pytest.raises(NotImplementedError):
-            FullFaceSwapPipeline(pipe.swapper, comp, cfg)
+        FullFaceSwapPipeline(pipe.swapper, comp, cfg)
 
 
 def test_mode_resolution_and_identity(pipelines):
