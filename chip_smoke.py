@@ -65,7 +65,22 @@ Phases, each of which must pass or the script exits non-zero:
    phase 5's frames and one call per classical ct_mode (rct, lct, mkl,
    sot); then the CodeFormer and GFPGAN enhancers, MISF inpainting and a
    2-step W-space refinement once each. Phase 2 also holds K1 and K2 at the
-   two shapes GPEN-512 adds.
+   two shapes GPEN-512 adds;
+8. reenact: the phase-7 pipeline with a faceVid2Vid pose driver (vox-256
+   widths) and a Hopenet ResNet-50 pose estimator (`profile_swap.
+   reenact_components`, seeded random weights), B=1 on 1024^2 crops at
+   pose_gap_threshold 0 (every call drives the source): timed calls with
+   each call's gap and gate decision, the launch counts, the stage times
+   (pose_gate and pose_drive inside pose_align), the peak memory and the
+   busy share of one traced call, the call against the plain versions on
+   the card (image mean within 0.5 levels, the same gate decision), one
+   call at the default 20 degrees,
+   `swap_batch` at B=4 with a threshold between the pairs' gaps (each pair
+   gated on its own) against four single calls; then TPSMM, DaGAN and LIA
+   from the pose-drive registry once each at their published widths on a
+   256^2 source and driving frame (ms per driven frame, finite output in
+   range; LIA, which runs K1 and K2, against its plain versions), and
+   DCNv2Pack at (1, 64, 128^2) against the same call on the CPU.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Float32 convolutions and matrix
@@ -170,6 +185,21 @@ OPTIMIZE_W_STEPS = 2
 # the kernel cases phase 7 adds, reported in the summary line too
 ZOO_CASES = (("fused_leaky_relu", "GPEN-512 decoder after the concat, (1, 128, 512^2)"),
              ("upfirdn2d", "GPEN-512 encoder downsample blur, (1, 64, 512^2) pad (2, 2)"))
+
+# phase 8: the reenacted calls (faceVid2Vid, Hopenet and the pose gate run
+# no K1-K3, so a call launches what a phase-7 call does), the swap_batch B,
+# the frames timed per registry driver, LIA's bound against its plain
+# versions, and DCNv2Pack's case and bound against the CPU. LIA's bound is
+# the larger of 1e-3 of its output's largest magnitude (at least 1) and 4x
+# the largest change that a one-ulp perturbation of its two input frames
+# makes in the plain-version output (3 draws): on random weights and
+# white-noise frames LIA amplifies float32 rounding about 1e4-fold (a 1e-7
+# relative perturbation of K1's outputs moves its output by 3e-3, a one-ulp
+# input perturbation by 1.5e-3 to 3.7e-3; CPU runs of the same seeded net),
+# so summation order alone exceeds 1e-3 there
+REENACT_REQUESTS, REENACT_BATCH, DRIVER_FRAMES = 3, 4, 3
+LIA_REL_TOL, LIA_ULP_FACTOR, LIA_ULP_DRAWS = 1e-3, 4.0, 3
+DCN_SHAPE, DCN_TOL = (1, 64, 128, 128), 1e-4
 
 # kernels whose bfloat16 instances must hold tensor-core instructions
 TENSOR_CORE_KERNELS = ("swin_block_kernel", "window_attention_kernel")
@@ -1525,6 +1555,218 @@ def _zoo_extras(torch, kernels, swapper, src, tgt):
     return problems
 
 
+def _busy_share(torch, fn):
+    """The device's busy share over one fn() call: the summed self device
+    time of the CUDA events torch.profiler records, over the call's wall
+    time (one stream, so no event counts twice)."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3, "busy_share": busy / wall}
+
+
+def _gate(pipe):
+    return {"gaps": pipe.last_gate["gaps"], "driven": pipe.last_gate["driven"]}
+
+
+def phase_reenact(torch, rgi_sd, bise_sd):
+    """The reenacted zoo swap (see the module docstring, phase 8). Returns
+    the record of the timed calls, with the LIA run's launches under
+    "lia_launches"."""
+    from e4s2024_torch import kernels
+    from e4s2024_torch.pipelines.full_swap import FullFaceSwapPipeline, FullSwapConfig
+    from e4s2024_torch.pipelines.swap import FaceSwapper, SwapConfig
+    from e4s2024_torch.pipelines.video import StageTimer
+    from e4s2024_torch.profile_swap import reenact_components
+
+    swapper = FaceSwapper(rgi_sd, bise_sd, SwapConfig(), device="cuda")
+    comps = reenact_components("cuda")
+    pipe = FullFaceSwapPipeline(swapper, comps, FullSwapConfig(face_inpainting=True,
+                                                               pose_gap_threshold=0.0))
+    if pipe._fused():
+        raise AssertionError("reenact: a pose driver should take JAX's staged semantics")
+    driven, target = _inputs(1024)
+    src, tgt = driven[0], target[0]
+    problems = []
+    gates = []
+
+    def call():
+        out = pipe(src, tgt, return_intermediates=True)
+        gates.append(_gate(pipe))
+        return out
+
+    out, ms, launches, peak = _zoo_call(torch, kernels, call, REENACT_REQUESTS)
+    want = dict.fromkeys(launches, 0)
+    want.update({k: REENACT_REQUESTS * v for k, v in ZOO_PER_CALL.items()})
+    if launches != want:
+        problems.append(f"launches {launches}, expected {want}")
+    image = out["image"]
+    if image.shape != (1024, 1024, 3) or image.dtype != torch.uint8:
+        problems.append(f"bad output {tuple(image.shape)} {image.dtype}")
+    if not all(g["driven"] == [True] for g in gates):
+        problems.append(f"threshold 0 left a call undriven: {gates}")
+    timer = StageTimer()
+    pipe(src, tgt, timer=timer)
+    busy = _busy_share(torch, lambda: pipe(src, tgt))
+    with kernels.plain_versions_on_card():
+        plain = pipe(src, tgt, return_intermediates=True)
+        plain_gate = _gate(pipe)
+    diff = (plain["image"].int() - image.int()).abs()
+    driven_diff = (plain["driven"].int() - out["driven"].int()).abs()
+    kept = comps.enhancers["gpen"](torch.from_numpy(driven).cuda().float())
+    default = FullFaceSwapPipeline(swapper, comps, FullSwapConfig(face_inpainting=True))
+    t0 = time.perf_counter()
+    default(src, tgt)
+    torch.cuda.synchronize()
+    default_ms = (time.perf_counter() - t0) * 1e3
+    rec = {"requests": REENACT_REQUESTS, "latency_ms": ms, "peak_mem_gib": peak,
+           "launches": launches, "launches_per_call": ZOO_PER_CALL, "gates": gates,
+           "stage_ms": timer.times, "traced_call": busy,
+           "vs_plain_max_abs": int(diff.max()), "vs_plain_mean_abs": float(diff.float().mean()),
+           "vs_plain_driven_max_abs": int(driven_diff.max()),
+           "plain_gate": plain_gate, "tolerance_mean_abs": 0.5,
+           "driven_vs_enhanced_source_mean_abs": float(
+               (out["driven"].float() - kept[0]).abs().mean()),
+           "changed_vs_target_share": float((image != torch.from_numpy(tgt).cuda())
+                                            .float().mean()),
+           "default_threshold": {"threshold": default.cfg.pose_gap_threshold,
+                                 "gate": _gate(default), "ms": default_ms}}
+    if rec["vs_plain_mean_abs"] > 0.5:
+        problems.append("the call differs from the plain-version call beyond 0.5 levels mean")
+    if plain_gate["driven"] != gates[-1]["driven"]:
+        problems.append("the plain-version call's gate decided otherwise")
+    if rec["driven_vs_enhanced_source_mean_abs"] <= 0.0:
+        problems.append("the drive left the source crop as it was")
+    log(f"[reenact] {json.dumps(rec)}")
+
+    # swap_batch at B=4, the threshold between the pairs' gaps
+    srcs, tgts = _zoo_inputs(REENACT_BATCH)
+    gaps = sorted(comps.pose_estimator.pose_gaps(srcs, tgts).tolist())
+    threshold = (gaps[1] + gaps[2]) / 2
+    bpipe = FullFaceSwapPipeline(swapper, comps, FullSwapConfig(face_inpainting=True,
+                                                                pose_gap_threshold=threshold))
+    batch, bms, blaunch, bpeak = _zoo_call(torch, kernels, lambda: bpipe.swap_batch(srcs, tgts))
+    bgate = _gate(bpipe)
+    singles, sgates = [], []
+    for s_, t_ in zip(srcs, tgts):
+        singles.append(bpipe(s_, t_)["image"])
+        sgates.append(bpipe.last_gate["driven"][0])
+    bdiff = (batch.int() - torch.stack(singles).int()).abs()
+    brec = {"batch": REENACT_BATCH, "threshold": threshold, "gate": bgate,
+            "single_gates": sgates, "ms": bms[0], "swaps_per_s": REENACT_BATCH / bms[0] * 1e3,
+            "peak_mem_gib": bpeak, "vs_single_max_abs": int(bdiff.max()),
+            "vs_single_mean_abs": float(bdiff.float().mean()),
+            "launches": {k: v for k, v in blaunch.items() if v}}
+    if bgate["driven"] != sgates or brec["vs_single_mean_abs"] > 0.5 \
+            or batch.shape != (REENACT_BATCH, 1024, 1024, 3):
+        problems.append(f"swap_batch: {brec}")
+    if len(set(gaps)) == REENACT_BATCH and sorted(sgates) != [False, False, True, True]:
+        problems.append(f"swap_batch: the threshold between the gaps should split the batch "
+                        f"{gaps} {sgates}")
+    log(f"[reenact] swap_batch {json.dumps(brec)}")
+    del swapper, pipe, bpipe, default, comps, out, plain, batch, singles
+    torch.cuda.empty_cache()
+    lia_launches = _registry_drivers(torch, kernels, problems)
+    problems += _dcn_check(torch)
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError(f"reenact: {problems}")
+    rec["lia_launches"] = lia_launches
+    return rec
+
+
+def _registry_drivers(torch, kernels, problems):
+    """TPSMM, DaGAN and LIA through `make_pose_driver` at their published
+    widths (PyTorch's seeded default initialisation) on a 256^2 source and
+    driving frame: ms per driven frame over DRIVER_FRAMES calls after a
+    warm-up, finite output in range; LIA also against its plain versions
+    (bound: LIA_ULP_FACTOR), with its K1/K2 launches counted over the timed
+    calls. Returns LIA's launches."""
+    from e4s2024_torch.models import dagan, lia, tpsmm
+    from e4s2024_torch.pipelines.pose_drive import make_pose_driver
+
+    torch.manual_seed(SEED + 9)
+    rng = np.random.default_rng(SEED + 9)
+    src01, drv01 = (torch.from_numpy(rng.random((1, 256, 256, 3), np.float32)).cuda()
+                    for _ in range(2))
+    weights = {
+        "TPSMM": {"kp_detector": tpsmm.TPSKPDetector().state_dict(),
+                  "dense_motion_network": tpsmm.TPSDenseMotion().state_dict(),
+                  "inpainting_network": tpsmm.TPSInpainting().state_dict()},
+        "DaGAN": {"generator": dagan.DepthAwareGenerator().state_dict(),
+                  "kp_detector": dagan.DaGANKPDetector().state_dict(),
+                  "depth_encoder": dagan.DepthResnetEncoder().state_dict(),
+                  "depth_decoder": dagan.DepthDecoder().state_dict()},
+        "LIA": lia.LIAGenerator().state_dict()}
+    lia_launches = None
+    for name, sd in weights.items():
+        drv = make_pose_driver(name, sd, device="cuda")
+        s, d = (src01 * 2 - 1, drv01 * 2 - 1) if name == "LIA" else (src01, drv01)
+        out, ms, launches, peak = _zoo_call(torch, kernels, lambda: drv(s, d), DRIVER_FRAMES)
+        lo, hi = (-np.inf, np.inf) if name == "LIA" else (0.0, 1.0)
+        rec = {"driver": name, "ms_per_frame": ms, "peak_mem_gib": peak,
+               "shape": list(out.shape), "finite": bool(torch.isfinite(out).all()),
+               "min": float(out.min()), "max": float(out.max()),
+               "launches": {k: v for k, v in launches.items() if v}}
+        if name == "LIA":
+            eps = torch.finfo(torch.float32).eps
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+            def ulp(x):
+                return x * (1 + eps * torch.randn(x.shape, generator=gen, device="cuda").sign())
+
+            with kernels.plain_versions_on_card():
+                plain = drv(s, d)
+                response = max(float((drv(ulp(s), ulp(d)) - plain).abs().max())
+                               for _ in range(LIA_ULP_DRAWS))
+            rec["vs_plain_max_abs"] = float((plain - out).abs().max())
+            rec["one_ulp_input_response"] = response
+            rec["tolerance"] = max(LIA_REL_TOL * max(1.0, float(plain.abs().max())),
+                                   LIA_ULP_FACTOR * response)
+            lia_launches = launches
+            if rec["vs_plain_max_abs"] > rec["tolerance"] or not all(
+                    launches[k] for k in ("fused_leaky_relu", "upfirdn2d")):
+                problems.append(f"LIA against its plain versions: {rec}")
+        log(f"[reenact] driver {json.dumps(rec)}")
+        if out.shape != (1, 256, 256, 3) or not rec["finite"] or rec["min"] < lo \
+                or rec["max"] > hi:
+            problems.append(f"driver {name}: {rec}")
+        del drv, out
+        torch.cuda.empty_cache()
+    return lia_launches
+
+
+def _dcn_check(torch):
+    """DCNv2Pack at DCN_SHAPE (offsets from a random offset conv, reaching
+    past the frame's edge) on the card against the same call on the CPU."""
+    from e4s2024_torch.ops.deform_conv import DCNv2Pack
+
+    torch.manual_seed(SEED + 10)
+    mod = DCNv2Pack(DCN_SHAPE[1], DCN_SHAPE[1])
+    with torch.no_grad():
+        mod.conv_offset.weight.normal_(0, 0.05)
+        mod.conv_offset.bias.normal_(0, 2.0)
+    x = torch.randn(DCN_SHAPE)
+    with torch.inference_mode():
+        want = mod(x, x)
+        mod.cuda()
+        xc = x.cuda()
+        got = mod(xc, xc)
+        ms = time_ms(torch, lambda: mod(xc, xc), iters=5, warmup=1)
+    err = float((got.cpu() - want).abs().max())
+    rec = {"dcnv2pack": list(DCN_SHAPE), "max_abs_err_vs_cpu": err, "tolerance": DCN_TOL,
+           "ms": ms}
+    log(f"[reenact] {json.dumps(rec)}")
+    return [] if err <= DCN_TOL else [f"DCNv2Pack: {rec}"]
+
+
 def main() -> int:
     import torch
 
@@ -1556,14 +1798,17 @@ def main() -> int:
     raw = phase_raw(torch, rgi_sd, bise_sd, sr_sd)
     video = phase_video(torch, rgi_sd, bise_sd)
     zoo = phase_zoo(torch, rgi_sd, bise_sd)
+    reenact = phase_reenact(torch, rgi_sd, bise_sd)
 
     # launches: K1-K3 on the aligned swaps of phase 3, the raw-frame calls of
     # phase 5, the video clip of phase 6 (which alone runs the backward
-    # kernels) and the zoo swaps of phase 7, K5 on the enhanced swaps of
-    # phases 4 and 5, K4 and K6 on the upscaler runs of their routes
+    # kernels), the zoo swaps of phase 7 and the reenacted swaps and the LIA
+    # drive of phase 8, K5 on the enhanced swaps of phases 4 and 5, K4 and K6
+    # on the upscaler runs of their routes
     launches = {name: sum(main_path[m]["launches"][name] for m in main_path)
                 + sum(r["launches"].get(name, 0) for r in raw.values())
                 + video["launches"][name] + zoo["launches"][name]
+                + reenact["launches"][name] + reenact["lia_launches"][name]
                 for name in PER_CALL["exact"]}
     launches.update({name: video["launches"][name] for name in BACKWARD})
     launches["fused_swin_block"] = (enhance["launches"]["fused_swin_block"]

@@ -727,3 +727,290 @@ def misf_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
         _conv(params[f"middle{i}"]["conv1"], f"middle.{i}.conv_block.1", out)
         _conv(params[f"middle{i}"]["conv2"], f"middle.{i}.conv_block.5", out)
     return out
+
+
+# ------------------------------------------------------------ reenactment
+
+def nest_flat_checkpoint(ckpt: Mapping) -> dict:
+    """A checkpoint of several nets, {'net': {param: value}} or the flattened
+    {'net.param': value}, as the nested form."""
+    if any(isinstance(v, Mapping) for v in ckpt.values()):
+        return {k: dict(v) for k, v in ckpt.items() if isinstance(v, Mapping)}
+    nested: dict[str, dict] = {}
+    for key, value in ckpt.items():
+        head, _, rest = key.partition(".")
+        nested.setdefault(head, {})[rest] = value
+    return nested
+
+
+def drop_antialias_buffers(state_dict: Mapping, scales: Mapping[str, float]) -> dict:
+    """A state dict without the fixed Gaussian of each AntiAliasInterpolation2d
+    named in `scales` (key -> scale factor): a present buffer must equal the
+    port's constant (`models/facevid2vid.py::antialias_kernel`, repeated per
+    channel) within 1e-6, or this raises."""
+    from e4s2024_torch.models.facevid2vid import antialias_kernel
+
+    out = dict(state_dict)
+    for key, scale in scales.items():
+        if key not in out:
+            continue
+        got = torch.as_tensor(np.asarray(out.pop(key))).float().cpu()
+        want = torch.from_numpy(antialias_kernel(scale)).float()
+        if got.ndim != 4 or got.shape[1] != 1 or got.shape[2:] != want.shape \
+                or not torch.allclose(got, want.expand_as(got), rtol=0.0, atol=1e-6):
+            raise ValueError(f"{key}: the anti-alias kernel {tuple(got.shape)} differs from "
+                             f"the port's constant for scale {scale}")
+    return out
+
+
+def _conv3(p: Mapping, name: str, out: dict) -> None:
+    out[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(4, 3, 0, 1, 2))
+    if "bias" in p:
+        out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _resnet_block(p: Mapping, name: str, out: dict, convs=(1, 2, 3)) -> None:
+    for j in convs:
+        _conv(p[f"conv{j}"], f"{name}.conv{j}", out)
+        _bn(p[f"bn{j}"], f"{name}.bn{j}", out)
+    if "down_conv" in p:
+        _conv(p["down_conv"], f"{name}.downsample.0", out)
+        _bn(p["down_bn"], f"{name}.downsample.1", out)
+
+
+def hopenet_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Hopenet params -> port Hopenet state dict in the reference's names
+    (the inverse of the layout of `convert_hopenet`)."""
+    out: dict[str, torch.Tensor] = {}
+    _conv(params["conv1"], "conv1", out)
+    _bn(params["bn1"], "bn1", out)
+    for key in sorted(k for k in params if k.startswith("layer")):
+        li, bi = key[len("layer"):].split("_")
+        _resnet_block(params[key], f"layer{li}.{bi}", out)
+    for head in ("fc_yaw", "fc_pitch", "fc_roll"):
+        _linear(params[head], head, out)
+    return out
+
+
+def _convnorm(p: Mapping, name: str, out: dict, conv3d: bool = False) -> None:
+    (_conv3 if conv3d else _conv)(p["conv"], f"{name}.conv", out)
+    _bn(p["norm"], f"{name}.norm", out)
+
+
+def _fv2v_spade_block(p: Mapping, name: str, out: dict) -> None:
+    for key in ("norm_0", "norm_1", "norm_s"):
+        if key in p:
+            _conv(p[key]["mlp_shared"], f"{name}.{key}.mlp_shared.0", out)
+            _conv(p[key]["mlp_gamma"], f"{name}.{key}.mlp_gamma", out)
+            _conv(p[key]["mlp_beta"], f"{name}.{key}.mlp_beta", out)
+    for key in ("conv_0", "conv_1", "conv_s"):
+        if key in p:
+            _conv(p[key], f"{name}.{key}", out)
+
+
+def facevid2vid_state_dicts_from_jax(params: Mapping) -> dict[str, dict[str, torch.Tensor]]:
+    """FaceVid2VidDriver params {'kp_detector', 'he_estimator', 'generator'}
+    -> the port's three state dicts in the reference's names (the inverse of
+    the layouts of `convert_facevid2vid_kp`, `_he` and `_generator`; the
+    spectral norms are the folded weights)."""
+    kp, he, gen = params["kp_detector"], params["he_estimator"], params["generator"]
+    kp_sd: dict[str, torch.Tensor] = {}
+    pred = kp["predictor"]
+    _conv(pred["conv"], "predictor.conv", kp_sd)
+    for i in range(_count(pred, "down_")):
+        _convnorm(pred[f"down_{i}"], f"predictor.down_blocks.down{i}", kp_sd)
+    for i in range(_count(pred, "up_")):
+        _convnorm(pred[f"up_{i}"], f"predictor.up_blocks.up{i}", kp_sd, conv3d=True)
+    _conv3(kp["kp"], "kp", kp_sd)
+
+    he_sd: dict[str, torch.Tensor] = {}
+    for i in range(1, 6):
+        _conv(he[f"conv{i}"], f"conv{i}", he_sd)
+        _bn(he[f"norm{i}"], f"norm{i}", he_sd)
+    blocks = {f"{b}_{i}": f"{b}.b{b[-1]}_{i}" for b, n in
+              (("block1", 3), ("block3", 3), ("block5", 5), ("block7", 2)) for i in range(n)}
+    blocks.update({b: b for b in ("block2", "block4", "block6")})
+    for key, name in blocks.items():
+        q = he[key]
+        for j in (1, 2, 3):
+            _conv(q[f"conv{j}"], f"{name}.conv{j}", he_sd)
+            _bn(q[f"norm{j}"], f"{name}.norm{j}", he_sd)
+        if "skip" in q:
+            _conv(q["skip"], f"{name}.skip", he_sd)
+            _bn(q["norm4"], f"{name}.norm4", he_sd)
+    for fc in ("fc_roll", "fc_pitch", "fc_yaw", "fc_t", "fc_exp"):
+        _linear(he[fc], fc, he_sd)
+
+    g_sd: dict[str, torch.Tensor] = {}
+    _convnorm(gen["first"], "first", g_sd)
+    _convnorm(gen["third"], "third", g_sd)
+    _conv(gen["second"], "second", g_sd)
+    _conv(gen["fourth"], "fourth", g_sd)
+    for i in range(_count(gen, "down_blocks_")):
+        _convnorm(gen[f"down_blocks_{i}"], f"down_blocks.{i}", g_sd)
+    for i in range(_count(gen, "resblocks_3d_")):
+        r, name = gen[f"resblocks_3d_{i}"], f"resblocks_3d.3dr{i}"
+        for j in (1, 2):
+            _conv3(r[f"conv{j}"], f"{name}.conv{j}", g_sd)
+            _bn(r[f"norm{j}"], f"{name}.norm{j}", g_sd)
+    dm, name = gen["dense_motion_network"], "dense_motion_network"
+    _conv3(dm["compress"], f"{name}.compress", g_sd)
+    _bn(dm["norm"], f"{name}.norm", g_sd)
+    _conv3(dm["mask"], f"{name}.mask", g_sd)
+    _conv(dm["occlusion"], f"{name}.occlusion", g_sd)
+    hg = dm["hourglass"]
+    _conv3(hg["conv"], f"{name}.hourglass.decoder.conv", g_sd)
+    _bn(hg["norm"], f"{name}.hourglass.decoder.norm", g_sd)
+    for i in range(_count(hg, "down_")):
+        _convnorm(hg[f"down_{i}"], f"{name}.hourglass.encoder.down_blocks.{i}", g_sd, True)
+        _convnorm(hg[f"up_{i}"], f"{name}.hourglass.decoder.up_blocks.{i}", g_sd, True)
+    dec = gen["decoder"]
+    _conv(dec["fc"], "decoder.fc", g_sd)
+    _conv(dec["conv_img"], "decoder.conv_img", g_sd)
+    for key in [f"G_middle_{i}" for i in range(_count(dec, "G_middle_"))] + ["up_0", "up_1"]:
+        _fv2v_spade_block(dec[key], f"decoder.{key}", g_sd)
+    return {"kp_detector": kp_sd, "he_estimator": he_sd, "generator": g_sd}
+
+
+def _instance_norm(p: Mapping, name: str, out: dict) -> None:
+    out[f"{name}.weight"] = _t(p["scale"])
+    out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _tps_cn(p: Mapping, name: str, out: dict) -> None:
+    _conv(p["conv"], f"{name}.conv", out)
+    _instance_norm(p["norm"], f"{name}.norm", out)
+
+
+def tpsmm_state_dicts_from_jax(params: Mapping) -> dict[str, dict[str, torch.Tensor]]:
+    """TPSMMDriver params {'kp_detector', 'dense_motion', 'inpainting'} ->
+    the port's {'kp_detector', 'dense_motion_network', 'inpainting_network'}
+    state dicts in the reference's names (the inverse of the layout of
+    `convert_tpsmm`)."""
+    kp, dm, inp = params["kp_detector"], params["dense_motion"], params["inpainting"]
+    kp_sd: dict[str, torch.Tensor] = {}
+    _conv(kp["conv1"], "fg_encoder.conv1", kp_sd)
+    _bn(kp["bn1"], "fg_encoder.bn1", kp_sd)
+    _linear(kp["fc"], "fg_encoder.fc", kp_sd)
+    for key in sorted(k for k in kp if k.startswith("layer")):
+        li, bi = key[len("layer"):].split("_")
+        _resnet_block(kp[key], f"fg_encoder.layer{li}.{bi}", kp_sd, convs=(1, 2))
+    dm_sd: dict[str, torch.Tensor] = {}
+    hg = dm["hourglass"]
+    for i in range(_count(hg, "down")):
+        _tps_cn(hg[f"down{i}"], f"hourglass.encoder.down_blocks.{i}", dm_sd)
+        _tps_cn(hg[f"up{i}"], f"hourglass.decoder.up_blocks.{i}", dm_sd)
+    _conv(dm["maps"], "maps", dm_sd)
+    for i in range(_count(dm, "occlusion")):
+        _conv(dm[f"occlusion{i}"], f"occlusion.{i}", dm_sd)
+    for i in range(_count(dm, "up")):
+        _tps_cn(dm[f"up{i}"], f"up.{i}", dm_sd)
+    in_sd: dict[str, torch.Tensor] = {}
+    _tps_cn(inp["first"], "first", in_sd)
+    _conv(inp["final"], "final", in_sd)
+    for i in range(_count(inp, "down")):
+        _tps_cn(inp[f"down{i}"], f"down_blocks.{i}", in_sd)
+        _tps_cn(inp[f"up{i}"], f"up_blocks.{i}", in_sd)
+    for i in range(_count(inp, "res")):
+        r, name = inp[f"res{i}"], f"resblock.{i}"
+        for j in (1, 2):
+            _conv(r[f"conv{j}"], f"{name}.conv{j}", in_sd)
+            _instance_norm(r[f"norm{j}"], f"{name}.norm{j}", in_sd)
+    return {"kp_detector": kp_sd, "dense_motion_network": dm_sd, "inpainting_network": in_sd}
+
+
+def _fomm_hourglass(p: Mapping, name: str, out: dict) -> None:
+    for i in range(_count(p, "down")):
+        _convnorm(p[f"down{i}"], f"{name}.encoder.down_blocks.{i}", out)
+        _convnorm(p[f"up{i}"], f"{name}.decoder.up_blocks.{i}", out)
+
+
+def dagan_state_dicts_from_jax(params: Mapping) -> dict[str, dict[str, torch.Tensor]]:
+    """DaGANDriver params -> the port's {'generator', 'kp_detector',
+    'depth_encoder', 'depth_decoder'} state dicts in the reference's names
+    (the inverse of the layout of `convert_dagan`)."""
+    gen, kp = params["generator"], params["kp_detector"]
+    enc, dec = params["depth_encoder"], params["depth_decoder"]
+    g_sd: dict[str, torch.Tensor] = {}
+    for key in ("first", "src_first"):
+        _convnorm(gen[key], key, g_sd)
+    _conv(gen["final"], "final", g_sd)
+    attn = gen["AttnModule"]
+    for key in ("query_conv", "key_conv", "value_conv"):
+        _conv(attn[key], f"AttnModule.{key}", g_sd)
+    g_sd["AttnModule.gamma"] = _t(attn["gamma"])
+    for stem, name in (("down", "down_blocks"), ("src_down", "src_down_blocks"),
+                       ("up", "up_blocks")):
+        for i in range(_count(gen, stem)):
+            _convnorm(gen[f"{stem}{i}"], f"{name}.{i}", g_sd)
+    for i in range(_count(gen, "bottleneck_r")):
+        r, name = gen[f"bottleneck_r{i}"], f"bottleneck.r{i}"
+        for j in (1, 2):
+            _conv(r[f"conv{j}"], f"{name}.conv{j}", g_sd)
+            _bn(r[f"norm{j}"], f"{name}.norm{j}", g_sd)
+    dm = gen["dense_motion_network"]
+    _fomm_hourglass(dm["hourglass"], "dense_motion_network.hourglass", g_sd)
+    _conv(dm["mask"], "dense_motion_network.mask", g_sd)
+    if "occlusion" in dm:
+        _conv(dm["occlusion"], "dense_motion_network.occlusion", g_sd)
+    kp_sd: dict[str, torch.Tensor] = {}
+    _fomm_hourglass(kp["predictor"], "predictor", kp_sd)
+    _conv(kp["kp"], "kp", kp_sd)
+    if "jacobian" in kp:
+        _conv(kp["jacobian"], "jacobian", kp_sd)
+    enc_sd: dict[str, torch.Tensor] = {}
+    _conv(enc["conv1"], "encoder.conv1", enc_sd)
+    _bn(enc["bn1"], "encoder.bn1", enc_sd)
+    for key in sorted(k for k in enc if k.startswith("layer")):
+        li, bi = key[len("layer"):].split("_")
+        _resnet_block(enc[key], f"encoder.layer{li}.{bi}", enc_sd)
+    dec_sd: dict[str, torch.Tensor] = {}
+    for i in range(4, -1, -1):
+        for j in (0, 1):
+            _conv(dec[f"upconv_{i}_{j}"], f"decoder.{2 * (4 - i) + j}.conv.conv", dec_sd)
+    _conv(dec["dispconv_0"], "decoder.10.conv", dec_sd)
+    return {"generator": g_sd, "kp_detector": kp_sd, "depth_encoder": enc_sd,
+            "depth_decoder": dec_sd}
+
+
+def lia_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """LIAGenerator params -> port LIAGenerator state dict in the
+    reference's names (the inverse of the layout of `convert_lia`; the
+    activation biases in the port's (C,) form)."""
+    out: dict[str, torch.Tensor] = {}
+    app, prefix = params["enc"]["net_app"], "enc.net_app.convs"
+    _convlayer(app["conv0"], f"{prefix}.0", out)
+    n = _count(app, "res")
+    for j in range(n):
+        r = app[f"res{j}"]
+        _convlayer(r["conv1"], f"{prefix}.{j + 1}.conv1", out)
+        _convlayer(r["conv2"], f"{prefix}.{j + 1}.conv2", out, downsample=True)
+        _conv(r["skip"]["conv"], f"{prefix}.{j + 1}.skip.1", out, key="weight")
+    _conv(app["final"], f"{prefix}.{n + 1}", out, key="weight")
+    for i in range(5):
+        _linear(params["enc"][f"fc{i}"], f"enc.fc.{i}", out)
+    dec = params["dec"]
+    out["dec.direction.weight"] = _t(dec["direction"]["weight"])
+    out["dec.input.input"] = _t(np.asarray(dec["input"]).transpose(0, 3, 1, 2))
+    _styled_conv(dec["conv1"], "dec.conv1", out)
+    for i in range(_count(dec, "convs_")):
+        _styled_conv(dec[f"convs_{i}"], f"dec.convs.{i}", out)
+    for j in range(_count(dec, "to_rgbs_")):
+        rgb, name = dec[f"to_rgbs_{j}"], f"dec.to_rgbs.{j}"
+        _conv(rgb["conv"], f"{name}.conv.0", out, key="weight")
+        out[f"{name}.conv.1.bias"] = _t(rgb["act_bias"])
+        out[f"{name}.bias"] = _t(np.asarray(rgb["bias"]).transpose(0, 3, 1, 2))
+        flow, name = dec[f"to_flows_{j}"], f"dec.to_flows.{j}"
+        _modconv(flow["conv"], f"{name}.conv", out)
+        out[f"{name}.bias"] = _t(np.asarray(flow["bias"]).transpose(0, 3, 1, 2))
+    return out
+
+
+def dcnv2pack_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """DCNv2Pack params -> port DCNv2Pack state dict (`conv_offset`,
+    `weight`, `bias`; the JAX package's offset layout, not basicsr's)."""
+    out: dict[str, torch.Tensor] = {}
+    _conv(params["conv_offset"], "conv_offset", out)
+    out["weight"] = _t(np.asarray(params["weight"]).transpose(3, 2, 0, 1))
+    out["bias"] = _t(params["bias"])
+    return out

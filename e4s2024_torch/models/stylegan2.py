@@ -222,6 +222,22 @@ class ConvLayer(nn.Sequential):
         super().__init__(*layers)
 
 
+class ResBlock(nn.Module):
+    """Residual downsampling block (reference model.py:750): two 3x3
+    ConvLayers, the second blurred (K2) and strided, activated by K1, and a
+    blurred, strided 1x1 skip without bias; their sum over sqrt(2)."""
+
+    def __init__(self, in_channel: int, out_channel: int):
+        super().__init__()
+        self.conv1 = ConvLayer(in_channel, in_channel, 3)
+        self.conv2 = ConvLayer(in_channel, out_channel, 3, downsample=True)
+        self.skip = ConvLayer(in_channel, out_channel, 1, downsample=True, activate=False,
+                              bias=False)
+
+    def forward(self, x):
+        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2)
+
+
 class ConstantInput(nn.Module):
     def __init__(self, channel: int, size: int = 4):
         super().__init__()

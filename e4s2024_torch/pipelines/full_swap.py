@@ -4,7 +4,12 @@ Counterpart of `e4s2024_tpu/pipelines/full_swap.py` (the reference's
 `FaceSwap.face_swap_pipeline`, Face_swap_with_two_imgs.py:796), on
 pre-aligned crops, B pairs at a time:
 
-  1. pose_align: the identity (the pose driver is not ported),
+  1. pose_align: reenactment of the source crop toward the target's pose
+     (reference :688-743) by `components.pose_driver` (faceVid2Vid,
+     `models/facevid2vid.py`), gated per pair on the Hopenet pose gap of
+     `components.pose_estimator` (`models/hopenet.py`): pairs whose gap is
+     below `cfg.pose_gap_threshold` keep their crop; without a driver, the
+     identity,
   2. enhance: restoration of the driven crop (`components.enhancers`,
      reference :606-643): "gpen" when given, else `cfg.enhancement_mode`;
      an absent enhancer is the identity,
@@ -21,10 +26,11 @@ pre-aligned crops, B pairs at a time:
 The JAX pipeline runs a configuration whose components all have a fused
 form (GPEN, Blender, RealESRGAN, GCFSR: `fused_form`) as one program, in
 which the enhanced float crop enters the core swap as it is; otherwise
-(the SwinIR enhancer, a classical ct_mode, W-space refinement) it runs
-stage by stage, and the swap truncates the enhanced crop to uint8. The
-port runs the stages in both cases and follows that rule for the crop, so
-that each configuration computes what JAX's default call computes.
+(the SwinIR enhancer, a classical ct_mode, W-space refinement, a pose
+driver) it runs stage by stage, and the swap truncates the enhanced crop
+to uint8. The port runs the stages in both cases and follows that rule for
+the crop, so that each configuration computes what JAX's default call
+computes.
 
 `swap_batch` runs B pairs through every stage as one batch, in chunks of
 `cfg.max_fused_batch` (None: the whole batch, as in JAX). `swap_raw` and
@@ -32,14 +38,16 @@ that each configuration computes what JAX's default call computes.
 `swap_all`.
 
 With `optimize_w_steps > 0` the core swap refines both crops' style
-vectors first (`_swap_with_optimized_w`, stage "optimize_w_swap"). Not yet
-ported, and refused with NotImplementedError: the pose driver.
+vectors first (`_swap_with_optimized_w`, stage "optimize_w_swap").
 `ct_mode="blender"` without a recolorer and `face_inpainting` without an
-inpainter are the identity, as in JAX.
+inpainter are the identity, as in JAX. With a pose driver, JAX's
+`swap_batch` falls back to one staged call per pair, so each pair is gated
+on its own gap; the port batches the stages and keeps that per-pair gate.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -59,8 +67,8 @@ class SwapComponents:
     """Pluggable auxiliary models (each may be absent)."""
 
     enhancers: dict = field(default_factory=dict)  # name -> enhance_aligned fn
-    pose_driver: Any = None
-    pose_estimator: Any = None
+    pose_driver: Any = None        # FaceVid2VidDriver-like .drive(src01, tgt01)
+    pose_estimator: Any = None     # PoseEstimator-like .pose_gaps(a255, b255)
     recolorer: Any = None          # BlenderRecolorer-like .recolor(...)
     upscaler: Any = None           # RealESRGANUpscaler-like .upscale(img255)
     inpainter: Any = None          # FaceInpainter-like .inpaint(img255, hole)
@@ -95,10 +103,9 @@ class FullFaceSwapPipeline:
         self.swapper = swapper
         self.comp = SwapComponents() if components is None else components
         self.cfg = FullSwapConfig() if cfg is None else cfg
-        if self.comp.pose_driver is not None:
-            raise NotImplementedError(
-                "not ported yet: pose_driver; the port runs the enhancers, W-space "
-                "refinement, the recolor and the inpainting around the core swap")
+        # the last pose gate: each pair's gap (None without an estimator) and
+        # whether it was driven
+        self.last_gate: dict | None = None
         if self.cfg.ct_mode not in CT_MODES:
             raise ValueError(f"unknown ct_mode {self.cfg.ct_mode!r}")
 
@@ -123,6 +130,49 @@ class FullFaceSwapPipeline:
         if cfg.face_inpainting and comp.inpainter is not None:
             parts.append(comp.inpainter)
         return all(getattr(_owner(p), "fused_form", False) for p in parts)
+
+    def _pose_align(self, src: torch.Tensor, tgt: torch.Tensor, timer=None) -> torch.Tensor:
+        """Reenactment of the (B, S, S, 3) uint8 source crops toward their
+        targets' poses (reference :688-743). The estimator's gap is each
+        pair's own (the largest of |d yaw|, |d pitch|, |d roll|); a pair is
+        driven when its gap is at least `cfg.pose_gap_threshold`, every pair
+        when there is no estimator. The gate costs one host synchronisation.
+        A driven pair's crop: /255, bilinear to 256^2, `pose_driver.drive`,
+        bilinear back to S^2, x255, float. Returns the crops unchanged when
+        no pair is driven, else float crops. With `timer`, the gate and the
+        drive are the stages pose_gate and pose_drive."""
+        comp = self.comp
+        if comp.pose_driver is None:
+            return src
+
+        def stage(name):
+            return contextlib.nullcontext() if timer is None else timer.stage(name)
+
+        b = src.shape[0]
+        gaps = None
+        with stage("pose_gate"):
+            if comp.pose_estimator is not None:
+                gaps = comp.pose_estimator.pose_gaps(src, tgt).tolist()
+        drive = [i for i in range(b)
+                 if gaps is None or not gaps[i] < self.cfg.pose_gap_threshold]
+        self.last_gate = {"gaps": gaps, "driven": [i in drive for i in range(b)]}
+        if not drive:
+            return src
+        with stage("pose_drive"):
+            size = src.shape[1]
+            idx = torch.tensor(drive, device=src.device)
+
+            def to256(x):
+                return resize_bilinear(x[idx].permute(0, 3, 1, 2).float() / 255.0, (256, 256)
+                                       ).permute(0, 2, 3, 1)
+
+            s256, t256 = to256(src), to256(tgt)
+            out = torch.cat([comp.pose_driver.drive(s256[i:i + 1], t256[i:i + 1])
+                             for i in range(len(drive))]).to(src.device)
+            driven = src.float()
+            driven[idx] = resize_bilinear(out.permute(0, 3, 1, 2), (size, size)
+                                          ).permute(0, 2, 3, 1) * 255.0
+        return driven
 
     def _enhance(self, img255: torch.Tensor, mode: str | None = None) -> torch.Tensor:
         """Face restoration of (B, S, S, 3) crops (reference :606-643); the
@@ -257,7 +307,7 @@ class FullFaceSwapPipeline:
 
         cfg, comp = self.cfg, self.comp
         fused = self._fused()
-        driven = timed("pose_align", lambda x: x, src)
+        driven = timed("pose_align", self._pose_align, src, tgt, timer)
         driven = timed("enhance", self._enhance, driven,
                        "gpen" if "gpen" in comp.enhancers else None)
         if cfg.optimize_w_steps > 0:
@@ -281,7 +331,8 @@ class FullFaceSwapPipeline:
         `pipelines.video.StageTimer`) or `verbose`, each stage ends in a
         device synchronisation and the result carries `stage_times` (ms by
         stage: pose_align, enhance, core_swap, parse19, recolor, inpaint,
-        package)."""
+        package; with a pose driver also pose_gate and pose_drive, which
+        pose_align holds)."""
         if timer is None and verbose:
             from e4s2024_torch.pipelines.video import StageTimer
 
@@ -297,7 +348,7 @@ class FullFaceSwapPipeline:
     def swap_batch(self, source_crops255, target_crops255) -> torch.Tensor:
         """Swap B aligned pairs, (B, S, S, 3) -> (B, S, S, 3) uint8: every
         stage runs on the batch, in chunks of `cfg.max_fused_batch` pairs
-        (the whole batch when None)."""
+        (the whole batch when None); the pose gate decides per pair."""
         sw = self.swapper
         with torch.inference_mode():
             src, tgt = sw._as_u8(source_crops255), sw._as_u8(target_crops255)

@@ -1,7 +1,7 @@
 """Where the time of one swap goes, on a CUDA card.
 
     python -m e4s2024_torch.profile_swap [--mode exact|fast] [--dtype float32|bfloat16]
-                                         [--enhance | --raw | --video | --zoo]
+                                         [--enhance | --raw | --video | --zoo | --reenact]
 
 Builds FaceSwapper at the default configuration (1024^2 output, full
 encoder and parser) with seeded random weights (with --enhance, inside
@@ -26,6 +26,13 @@ with RealESRGAN x4, GCFSR inpainting) over the float32 swapper: step 1
 reports the pipeline's own stages from its `timer` hook (pose_align,
 enhance, core_swap, parse19, recolor, inpaint, package), step 2 as above,
 with the peak device memory.
+
+With --reenact it profiles the reenacted zoo swap: the --zoo pipeline
+with `reenact_components` (faceVid2Vid at vox-256 and the Hopenet pose
+estimator, seeded random weights) at pose_gap_threshold 0, so that every
+call drives the source; the stage table splits pose_align into
+pose_gate (Hopenet on both crops and the gate's host synchronisation) and
+pose_drive (the 256^2 resizes, faceVid2Vid, the resize back).
 
 With --video it runs the video swap instead, `FaceSwapVideoPipeline` over
 the float32 swapper and the default landmark stack on `video_clip`'s 8-frame
@@ -165,6 +172,23 @@ def zoo_components(device, seed: int = 5) -> SwapComponents:
         inpainter=FaceInpainter(FaceInpainting().state_dict(), device=device))
 
 
+def reenact_components(device, seed: int = 6) -> SwapComponents:
+    """`zoo_components` plus the pose stage at published widths with
+    PyTorch's seeded default initialisation: the faceVid2Vid driver at its
+    vox-256 defaults and the Hopenet (ResNet-50) pose estimator."""
+    from e4s2024_torch.models.facevid2vid import (
+        FaceVid2VidDriver, HEEstimator, KPDetector, OcclusionAwareSPADEGenerator)
+    from e4s2024_torch.models.hopenet import Hopenet, PoseEstimator
+
+    comps = zoo_components(device)
+    torch.manual_seed(seed)
+    ckpt = {"kp_detector": KPDetector().state_dict(), "he_estimator": HEEstimator().state_dict(),
+            "generator": OcclusionAwareSPADEGenerator().state_dict()}
+    comps.pose_driver = FaceVid2VidDriver(ckpt, device=device)
+    comps.pose_estimator = PoseEstimator(Hopenet().state_dict(), device=device)
+    return comps
+
+
 def profile_video(args) -> None:
     """The video swap at the JAX package's tuning defaults, stage by stage."""
     from e4s2024_torch.pipelines.video import FaceSwapVideoPipeline, StageTimer, VideoSwapConfig
@@ -244,9 +268,12 @@ def main() -> None:
     ap.add_argument("--zoo", action="store_true",
                     help="the zoo-enhanced swap at the default FullSwapConfig (GPEN, Blender + "
                          "RealESRGAN, GCFSR inpainting)")
+    ap.add_argument("--reenact", action="store_true",
+                    help="the reenacted zoo swap (--zoo with faceVid2Vid and the Hopenet gate)")
     args = ap.parse_args()
-    if args.enhance + args.raw + args.video + args.zoo > 1:
-        ap.error("--enhance, --raw, --video and --zoo profile different swaps; pick one")
+    if args.enhance + args.raw + args.video + args.zoo + args.reenact > 1:
+        ap.error("--enhance, --raw, --video, --zoo and --reenact profile different swaps; "
+                 "pick one")
     if not torch.cuda.is_available():
         raise SystemExit("profile_swap: no CUDA device is available")
     torch.backends.cudnn.allow_tf32 = False
@@ -274,11 +301,13 @@ def main() -> None:
         sw.landmark_fn = detect.default_landmarker()
         source, frame = raw_frames()
         swap = lambda: sw.swap(source, frame)  # noqa: E731
-    if args.zoo:
+    if args.zoo or args.reenact:
         if args.dtype != "float32":
-            ap.error("--zoo runs the float32 swapper (the zoo's nets are float32)")
-        pipe = FullFaceSwapPipeline(sw, zoo_components(sw.device),
-                                    FullSwapConfig(face_inpainting=True))
+            ap.error("--zoo and --reenact run the float32 swapper (the zoo's nets are float32)")
+        comps = reenact_components(sw.device) if args.reenact else zoo_components(sw.device)
+        # threshold 0: every reenacted call drives the source
+        pipe = FullFaceSwapPipeline(sw, comps, FullSwapConfig(face_inpainting=True,
+                                                              pose_gap_threshold=0.0))
         swap = lambda: pipe(driven[0], target[0])  # noqa: E731
     for _ in range(2):
         swap()
@@ -288,7 +317,7 @@ def main() -> None:
     stages: dict = {}
     for _ in range(args.requests):
         d = driven
-        if args.zoo:
+        if args.zoo or args.reenact:
             from e4s2024_torch.pipelines.video import StageTimer
 
             timer = StageTimer()
@@ -332,7 +361,7 @@ def main() -> None:
     groups = ["upfirdn2d_kernel", "regional_scale_kernel"]
     if args.enhance:
         groups += ["swin_block_kernel", "roll_cuda"]
-    if args.zoo:
+    if args.zoo or args.reenact:
         groups += ["fused_leaky_relu_kernel"]
     for group in groups:
         hits = [e for e in events if group in e.key]
@@ -341,7 +370,8 @@ def main() -> None:
             "device_ms_per_swap": sum(e.self_device_time_total for e in hits) / 1e3
             / args.requests}))
     print(json.dumps({"mode": args.mode, "dtype": args.dtype, "enhance": args.enhance,
-                      "raw": args.raw, "zoo": args.zoo,
+                      "raw": args.raw, "zoo": args.zoo, "reenact": args.reenact,
+                      **({"last_gate": pipe.last_gate} if args.reenact else {}),
                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                       "card": torch.cuda.get_device_name(0),
                       "wall_ms_per_swap_traced": wall_ms, "device_busy_ms_per_swap": device_ms,

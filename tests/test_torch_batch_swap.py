@@ -2,7 +2,7 @@
 `swap_batch` at B=2 against two single calls, the classical ct_modes'
 recolor stage and the Blender stage with the RealESRGAN upscaler and the
 edge-aware blend against JAX's, the inpaint composite, and what the
-constructor refuses.
+constructor refuses and which semantics each configuration takes.
 
 Components as in tests/test_torch_default_swap.py.
 """
@@ -145,8 +145,9 @@ def test_inpaint_composite_matches_jax_and_keeps_the_outside():
 
 
 def test_what_the_constructor_refuses(swap):
-    with pytest.raises(NotImplementedError):
-        FullFaceSwapPipeline(swap, SwapComponents(pose_driver=object()))
+    # a pose driver is taken, and keeps JAX's staged semantics, as its gate
+    # runs on the host (the reenacted swap: tests/test_torch_reenact_swap.py)
+    assert not FullFaceSwapPipeline(swap, SwapComponents(pose_driver=object()))._fused()
     with pytest.raises(ValueError, match="ct_mode"):
         FullFaceSwapPipeline(swap, None, FullSwapConfig(ct_mode="nope"))
     # a component without a fused form (any plain callable) keeps the

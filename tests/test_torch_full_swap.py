@@ -30,6 +30,7 @@ from e4s2024_torch.convert import (
     bisenet_state_dict_from_jax, rgi_state_dict_from_jax, swinir_state_dict_from_jax)
 from e4s2024_torch.models.swinir import SwinIREnhancer, SwinIRUpscaler
 from e4s2024_torch.pipelines.full_swap import FullFaceSwapPipeline, FullSwapConfig, SwapComponents
+from e4s2024_torch.pipelines.pose_drive import make_pose_driver
 from e4s2024_torch.pipelines.swap import FaceSwapper, SwapConfig
 from tests.test_torch_models import random_params
 from tests.test_torch_swinir import TINY, swin_params
@@ -113,8 +114,12 @@ def test_swap_batch_matches_jax(pipelines):
 
 def test_unported_components_raise(pipelines):
     _, pipe = pipelines
-    with pytest.raises(NotImplementedError):
-        FullFaceSwapPipeline(pipe.swapper, SwapComponents(pose_driver=object()))
+    # the pose driver is ported (tests/test_torch_reenact_swap.py) and takes
+    # JAX's staged semantics; PIRender, which cannot run in the reference
+    # either, is refused by the pose-drive registry
+    assert not FullFaceSwapPipeline(pipe.swapper, SwapComponents(pose_driver=object()))._fused()
+    with pytest.raises(NotImplementedError, match="PIRender"):
+        make_pose_driver("PIRender")
     # the recolorer, the upscaler, the inpainter, the classical ct_modes and
     # W-space refinement are ported (tests/test_torch_default_swap.py,
     # test_torch_batch_swap.py, test_torch_optim.py)
