@@ -80,7 +80,25 @@ Phases, each of which must pass or the script exits non-zero:
    from the pose-drive registry once each at their published widths on a
    256^2 source and driving frame (ms per driven frame, finite output in
    range; LIA, which runs K1 and K2, against its plain versions), and
-   DCNv2Pack at (1, 64, 128^2) against the same call on the CPU.
+   DCNv2Pack at (1, 64, 128^2) against the same call on the CPU;
+9. train: `Coach.fit` at the reference's default TrainConfig (1024^2, B=2,
+   exact mode, the full IR-SE-50 encoder at 256^2, channel multiplier 2,
+   remaining_layer_idx 13, the StyleGAN2 Discriminator at 1024, the three
+   loss nets at published widths, Adam at 1e-4) on the phase-3 RGI weights
+   and a seeded reference-style Discriminator (its Blur buffers checked and
+   dropped), over seeded smooth 1024^2 batches with 12-class label maps at
+   512^2; the one cut is the cadence (D every step, R1 every second: 3
+   steps run D+R1, D, D+R1, each followed by G): ms per G, D and D+R1 step
+   and images/s, the launches of K1-K3 forward, backward and double
+   backward per step kind, each step's losses against the same 3 steps with
+   the plain versions from the same weights (step 0 within 1e-4; later
+   steps within 1e-3, R1 within 5e-2), the frozen tensors unchanged,
+   a G step's peak memory with remat off and on, the EMA against its
+   formula, and one G step in DistributedDataParallel at world size 1
+   (NCCL) against the same step without it. Phase 2 also holds K1's and
+   K2's double backwards (R1's) at the Discriminator's largest shapes, and
+   R1 with its parameter gradient of a 256^2 Discriminator through the
+   kernels, against the plain versions.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Float32 convolutions and matrix
@@ -91,6 +109,7 @@ to within 2e-6.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -201,11 +220,33 @@ REENACT_REQUESTS, REENACT_BATCH, DRIVER_FRAMES = 3, 4, 3
 LIA_REL_TOL, LIA_ULP_FACTOR, LIA_ULP_DRAWS = 1e-3, 4.0, 3
 DCN_SHAPE, DCN_TOL = (1, 64, 128, 128), 1e-4
 
+# phase 2: the double-backward cases (R1's), reported in the summary line
+DOUBLE_BACKWARD_CASES = (
+    ("fused_leaky_relu_double_backward", "Discriminator convs.0 at 1024^2, B=2"),
+    ("upfirdn2d_double_backward", "Discriminator ResBlock blur at 1024^2, B=2, pad (2, 2)"))
+DOUBLE_BACKWARD = tuple(name for name, _ in DOUBLE_BACKWARD_CASES)
+
+# phase 9: the trainer at the default TrainConfig, its one cut (the
+# cadence: D every step, R1 every second, so that 3 steps run D+R1, D and
+# D+R1), the steps, and the fixed bounds of the kernels' run against the
+# plain versions': step 0 summation order; later steps also Adam's
+# lr-sized steps on rounding noise, as phase 6. In eleven runs without a
+# fault, R1 after two D updates (4.5e-6 at 1024^2 on these weights)
+# differed from the plain versions' by 3.8e-6 to 8.0e-3, the other later
+# metrics by at most 6.4e-4; with K1's backward at a wrong slope, by 0.26
+# and 1.2e-2 (train_fault_control.py; NVIDIA H100 80GB HBM3, 700.00 W)
+TRAIN_D_EVERY, TRAIN_D_REG_EVERY, TRAIN_STEPS = 1, 2, 3
+TRAIN_STEP0_REL, TRAIN_LATER_REL, TRAIN_R1_LATER_REL = 1e-4, 1e-3, 5e-2
+TRAIN_DDP_REL = 1e-5
+TRAIN_METRICS = ("loss", "loss_l2", "loss_lpips", "loss_id", "loss_face_parsing",
+                 "loss_g_adv", "d_loss", "r1_loss")
+
 # kernels whose bfloat16 instances must hold tensor-core instructions
 TENSOR_CORE_KERNELS = ("swin_block_kernel", "window_attention_kernel")
 
-# the backward kernels replace no TPU kernel (the JAX package differentiates
-# XLA ops); `replaces` names the TPU kernel whose gradient they compute
+# the backward and double-backward kernels replace no TPU kernel (the JAX
+# package differentiates XLA ops); `replaces` names the TPU kernel whose
+# gradient they compute
 KERNEL_INFO = {
     "fused_leaky_relu": ("e4s2024_torch/kernels/csrc/fused_act.cu",
                          "e4s2024_tpu/ops/pallas/kernels.py:58"),
@@ -219,6 +260,10 @@ KERNEL_INFO = {
                            "e4s2024_tpu/ops/pallas/kernels.py:96"),
     "regional_scale_backward": ("e4s2024_torch/kernels/csrc/regional_scale.cu",
                                 "e4s2024_tpu/ops/pallas/kernels.py:142"),
+    "fused_leaky_relu_double_backward": ("e4s2024_torch/kernels/csrc/fused_act.cu",
+                                         "e4s2024_tpu/ops/pallas/kernels.py:58"),
+    "upfirdn2d_double_backward": ("e4s2024_torch/kernels/csrc/upfirdn2d.cu",
+                                  "e4s2024_tpu/ops/pallas/kernels.py:96"),
     "swin_attention_nhwc": ("e4s2024_torch/kernels/csrc/window_attention.cu",
                             "e4s2024_tpu/ops/window_attention.py:131"),
     "fused_swin_block": ("e4s2024_torch/kernels/csrc/swin_block.cu",
@@ -468,6 +513,8 @@ def phase_kernels(torch):
 
     records += _zoo_kernel_records(torch, randn)
     records += _backward_records(torch, randn, gen)
+    records += _double_backward_records(torch, randn)
+    _r1_check(torch)
     records += _swin_kernel_records(torch, randn)
     failed = [r for r in records if not r["ok"]]
     if failed:
@@ -615,6 +662,126 @@ def _backward_records(torch, randn, gen):
         del sets, x, seg, s, g
     torch.cuda.empty_cache()
     return records
+
+
+def _double_backward_records(torch, randn):
+    """K1's and K2's double backwards (R1's) at the Discriminator's largest
+    shapes in phase 9 (B=2 at 1024^2, channel multiplier 2): K1 after
+    `convs.0` on (2, 32, 1024^2), K2 as the first ResBlock's blur before its
+    stride-2 conv, pad (2, 2), gain 1, on (2, 32, 1024^2). Each against
+    torch.autograd.grad twice through the plain version (the gradient, in
+    the incoming gradient, of the plain forward's gradient), float32, 1e-5
+    of the largest element. Library yardstick for K2: the depthwise
+    convolution that computes the same blur; none computes K1's in one call."""
+    import torch.nn.functional as F
+
+    from e4s2024_torch.ops import fused_act, upfirdn
+
+    def twice(plain, x, gg, *rest):
+        xr = x.detach().requires_grad_(True)
+        y = plain(xr, *rest)
+        g = torch.ones_like(y).requires_grad_(True)  # the gradient is linear in g
+        (gx,) = torch.autograd.grad(y, xr, g, create_graph=True)
+        return torch.autograd.grad(gx, g, gg)[0]
+
+    shape = (2, 32, 1024, 1024)
+    x, b, gg = randn(*shape), randn(32), randn(*shape)
+    out = fused_act.fused_leaky_relu_plain(x, b)
+    records = [_case_record(
+        torch, "fused_leaky_relu_double_backward", DOUBLE_BACKWARD_CASES[0][1],
+        lambda: fused_act.fused_leaky_relu_double_backward(gg, out),
+        lambda: fused_act.fused_leaky_relu_backward_plain(gg, out),
+        lambda: twice(fused_act.fused_leaky_relu_plain, x, gg, b),
+        None, 3 * out.numel() * 4, 2 * out.numel(), 1e-5, 1e-5,
+        symbol="fused_leaky_relu_backward_kernel")]
+    del out, b
+
+    k, pad = upfirdn.make_kernel([1, 3, 3, 1]), (2, 2)
+    w = torch.flip(k, (0, 1)).cuda().expand(shape[1], 1, 4, 4)
+    out_elems = shape[0] * shape[1] * upfirdn.out_size(shape[2], 4, 1, 1, pad) ** 2
+    records.append(_case_record(
+        torch, "upfirdn2d_double_backward", DOUBLE_BACKWARD_CASES[1][1],
+        lambda: upfirdn.upfirdn2d_double_backward(gg, k, 1, 1, pad),
+        lambda: upfirdn.upfirdn2d_plain(gg, k, 1, 1, pad),
+        lambda: twice(lambda t: upfirdn.upfirdn2d_plain(t, k, 1, 1, pad), x, gg),
+        lambda: F.conv2d(gg, w, padding=2, groups=shape[1]),
+        (x.numel() + out_elems) * 4, 2 * 16 * out_elems, 1e-5, 1e-5,
+        symbol="upfirdn2d_kernel", library_err=True))
+    del x, gg
+    torch.cuda.empty_cache()
+    return records
+
+
+def _r1_check(torch):
+    """R1 of a Discriminator at 256^2 (channel multiplier 2, B=4, seeded
+    default weights) and its gradient in every parameter, through the
+    kernels (K1 and K2 forward, backward and double backward) against the
+    same with the plain versions on the card, cuDNN's deterministic
+    algorithms on both sides. R1 within 1e-4 relative. The gradients of the
+    ResBlocks' biases are sums of ~1e-9 that cancel (they reach R1 only
+    through the minibatch stddev), so in float32 both runs sit up to 5e-3 of
+    their largest element from the float64 gradient: each float32 gradient
+    is held against the plain versions' float64 run, the kernels' no
+    further from it (in norm) than twice the plain float32 run's plus 1e-4
+    of its norm."""
+    from e4s2024_torch import kernels
+    from e4s2024_torch.losses.losses import r1_penalty
+    from e4s2024_torch.models.stylegan2 import Discriminator
+
+    torch.manual_seed(SEED)
+    disc = Discriminator(256, 2).cuda()
+    rng = np.random.default_rng(SEED + 9)
+    coarse = rng.random((4, 3, 16, 16)) * 2 - 1
+    x = torch.from_numpy(np.kron(coarse, np.ones((1, 1, 16, 16))).astype(np.float32)).cuda()
+
+    def run(d, xx):
+        params = list(d.parameters())
+        r1 = r1_penalty(d, xx)
+        grads = torch.autograd.grad(r1, params, allow_unused=True)
+        # the last bias does not reach the input gradient
+        return [r1.detach()] + [torch.zeros_like(p) if g is None else g
+                                for p, g in zip(params, grads)]
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernels.reset_launch_counts()
+        got = run(disc, x)
+        launches = kernels.launch_counts()
+        with kernels.plain_versions_on_card():
+            want = run(disc, x)
+            d64 = Discriminator(256, 2).cuda().double()
+            d64.load_state_dict(disc.state_dict())
+            truth = [t.float() for t in run(d64, x.double())]
+            del d64
+        ms = time_ms(torch, lambda: run(disc, x), iters=5, warmup=1)
+        with kernels.plain_versions_on_card():
+            plain_ms = time_ms(torch, lambda: run(disc, x), iters=2, warmup=0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    r1_rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    names = ["r1"] + [n for n, _ in disc.named_parameters()]
+    worst, failed, far = 0.0, [], {"kernels": 0.0, "plain": 0.0}
+    for name, g, w, t in zip(names[1:], got[1:], want[1:], truth[1:]):
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, float((g - w).abs().max()) / scale)
+        err_k, err_p, norm = float((g - t).norm()), float((w - t).norm()), float(t.norm())
+        far = {"kernels": max(far["kernels"], err_k / (norm or 1.0)),
+               "plain": max(far["plain"], err_p / (norm or 1.0))}
+        if err_k > 2 * err_p + 1e-4 * norm:
+            failed.append((name, err_k, err_p))
+    rec = {"name": "R1 and its parameter gradient", "case": "Discriminator 256^2, B=4",
+           "r1": float(got[0]), "r1_plain": float(want[0]), "r1_float64": float(truth[0]),
+           "r1_rel": r1_rel, "grad_vs_plain_max_rel_to_largest": worst,
+           "grad_norm_rel_to_float64_worst": far,
+           "grads_further_from_float64_than_allowed": failed, "ms": ms, "plain_ms": plain_ms,
+           "launches": launches}
+    log(f"[kernels] {json.dumps(rec)}")
+    if r1_rel > 1e-4 or failed or not np.isfinite(float(got[0])) \
+            or any(launches[n] == 0 for n in DOUBLE_BACKWARD):
+        raise AssertionError(f"R1 through the kernels disagrees with the plain versions: {rec}")
+    del disc, got, want, truth
+    torch.cuda.empty_cache()
 
 
 def _swin_block_weights(torch, randn, c, heads, hidden, dtype):
@@ -1767,6 +1934,266 @@ def _dcn_check(torch):
     return [] if err <= DCN_TOL else [f"DCNv2Pack: {rec}"]
 
 
+def _train_batches(n: int, b: int = 2, size: int = 1024, label_size: int = 512):
+    """n seeded batches for the trainer: smooth images in [-1, 1] (a coarse
+    grid upsampled, plus a little noise) and smooth 12-class label maps (a
+    coarse grid of classes upsampled), NCHW float32 numpy."""
+    rng = np.random.default_rng(SEED + 11)
+    out = []
+    for _ in range(n):
+        coarse = rng.random((b, 3, 16, 16)) * 1.6 - 0.8
+        img = np.kron(coarse, np.ones((1, 1, size // 16, size // 16)))
+        img = np.clip(img + rng.standard_normal(img.shape) * 0.05, -1, 1).astype(np.float32)
+        lbl = np.kron(rng.integers(0, 12, (b, 16, 16)), np.ones((1, label_size // 16,
+                                                                  label_size // 16), np.int64))
+        onehot = np.eye(12, dtype=np.float32)[lbl].transpose(0, 3, 1, 2)
+        out.append((img, np.ascontiguousarray(onehot)))
+    return out
+
+
+def _reference_discriminator(torch, size: int, channel_multiplier: int):
+    """A seeded Discriminator, as a reference file holds it: its weights
+    plus each ResBlock's Blur `kernel` buffers."""
+    from e4s2024_torch.models.stylegan2 import Discriminator
+    from e4s2024_torch.ops.upfirdn import make_kernel
+
+    torch.manual_seed(SEED + 12)
+    sd = Discriminator(size, channel_multiplier).state_dict()
+    for key in [k for k in sd if k.endswith(".conv1.0.weight")]:
+        stem = key[: -len(".conv1.0.weight")]
+        sd[f"{stem}.conv2.0.kernel"] = sd[f"{stem}.skip.0.kernel"] = make_kernel([1, 3, 3, 1])
+    return sd
+
+
+def _timed_steps(torch, kernels, coach):
+    """Wrap the coach's d_step and g_step so that each call is timed (host
+    clock, synchronised) and its launches recorded by step kind, from the
+    counts' differences (the counts are never reset here). Returns the list
+    the records go to."""
+    calls = []
+
+    def wrap(kind, fn):
+        def timed(state, img, onehot, *rest):
+            torch.cuda.synchronize()
+            before, t0 = kernels.launch_counts(), time.perf_counter()
+            out = fn(state, img, onehot, *rest)
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            name = "d_r1" if kind == "d" and rest and rest[0] else kind
+            calls.append({"kind": name, "ms": (time.perf_counter() - t0) * 1e3,
+                          "launches": {k: after[k] - before[k] for k in after}})
+            return out
+        return timed
+
+    coach.d_step = wrap("d", coach.d_step)
+    coach.g_step = wrap("g", coach.g_step)
+    return calls
+
+
+def _train_setup(torch):
+    """Phase 9's TrainConfig, loss nets, reference-style Discriminator
+    state dict and batches on the card."""
+    from e4s2024_torch.profile_swap import loss_nets
+    from e4s2024_torch.training.coach import TrainConfig
+
+    cfg = TrainConfig(d_every=TRAIN_D_EVERY, d_reg_every=TRAIN_D_REG_EVERY)
+    d_sd = _reference_discriminator(torch, cfg.out_size, cfg.channel_multiplier)
+    batches = [tuple(torch.from_numpy(a).cuda() for a in batch)
+               for batch in _train_batches(TRAIN_STEPS)]
+    return cfg, loss_nets("cuda"), d_sd, batches
+
+
+def _train_start(torch, coach, rgi_sd, d_sd):
+    """The coach's state from the seeded RGI and Discriminator weights."""
+    state = coach.init_state(torch.Generator().manual_seed(SEED))
+    return coach.load_pretrained(state, rgi_sd, d_sd)
+
+
+def _train_fit(torch, setup, rgi_sd, plain: bool):
+    """A fresh Coach's fit of TRAIN_STEPS steps from the starting weights,
+    through the kernels or (`plain`) their plain versions. Returns (coach,
+    state, per-step metrics, per-step timings, the run's record)."""
+    from e4s2024_torch import kernels
+    from e4s2024_torch.training.coach import Coach
+
+    cfg, nets, d_sd, batches = setup
+    coach = Coach(cfg, nets, device="cuda")
+    state = _train_start(torch, coach, rgi_sd, d_sd)
+    calls = _timed_steps(torch, kernels, coach)
+    logs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with kernels.plain_versions_on_card() if plain else contextlib.nullcontext():
+        state = coach.fit(batches, state, TRAIN_STEPS, callback=lambda s, m: logs.append(m))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return coach, state, logs, calls, {"wall_s": wall, "launches": kernels.launch_counts(),
+                                       "peak_mem_gib": torch.cuda.max_memory_allocated()
+                                       / 2 ** 30}
+
+
+def _train_compare(logs, plogs):
+    """Each step's metrics against the plain versions': (relative
+    differences, the problems found). Step 0 within TRAIN_STEP0_REL, later
+    steps within TRAIN_LATER_REL, R1 after step 0 within
+    TRAIN_R1_LATER_REL."""
+    rel, problems = [], []
+    for step, (a, b) in enumerate(zip(logs, plogs)):
+        rel.append({k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in TRAIN_METRICS if k in b})
+        if set(a) != set(b) or not all(np.isfinite(v) for v in a.values()):
+            problems.append(f"step {step}: metrics {sorted(a)} vs {sorted(b)}, or not finite")
+        for k, r in rel[-1].items():
+            limit = (TRAIN_STEP0_REL if step == 0 else
+                     TRAIN_R1_LATER_REL if k == "r1_loss" else TRAIN_LATER_REL)
+            if r > limit:
+                problems.append(f"step {step}: {k} differs from the plain versions' by {r} "
+                                f"(limit {limit})")
+    return rel, problems
+
+
+def phase_train(torch, rgi_sd):
+    """The trainer at the default TrainConfig (see the module docstring,
+    phase 9). Returns the measured fit's record, its launches under
+    "launches"."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+
+    from e4s2024_torch.parallel.ddp import make_process_group
+    from e4s2024_torch.training.coach import EMA_ACCUM, Coach
+
+    setup = _train_setup(torch)
+    cfg, nets, d_sd, batches = setup
+    t0 = time.perf_counter()
+    coach, state, logs, calls, run = _train_fit(torch, setup, rgi_sd, plain=False)
+    log(f"[train] fit of {TRAIN_STEPS} steps (with set-up): {time.perf_counter() - t0:.1f} s")
+    frozen = [k for k, flag in coach._mask.items() if not flag]
+    frozen_equal = all(torch.equal(state.params[k].detach().cpu(), rgi_sd[k]) for k in frozen)
+    _, _, plogs, pcalls, prun = _train_fit(torch, setup, rgi_sd, plain=True)
+
+    # per step kind, after the warm-up step 0
+    by_kind = {}
+    for c in calls[2:]:
+        by_kind.setdefault(c["kind"], []).append(c["ms"])
+    ms = {k: float(np.mean(v)) for k, v in by_kind.items()}
+    rel, problems = _train_compare(logs, plogs)
+    if not frozen or not frozen_equal:
+        problems.append(f"frozen tensors changed ({len(frozen)} frozen)")
+    if [c["kind"] for c in calls] != ["d_r1", "g", "d", "g", "d_r1", "g"]:
+        problems.append(f"step kinds {[c['kind'] for c in calls]}")
+    needed = ("fused_leaky_relu", "upfirdn2d", "regional_scale", *BACKWARD, *DOUBLE_BACKWARD)
+    if any(run["launches"][k] == 0 for k in needed) or any(prun["launches"].values()):
+        problems.append(f"launches {run['launches']}, plain run {prun['launches']}")
+    step_launches = {c["kind"]: {k: v for k, v in c["launches"].items() if v}
+                     for c in calls[:4]}
+    b = batches[0][0].shape[0]
+    rec = {"config": {"out_size": cfg.out_size, "batch_size": b,
+                      "regional_mode": cfg.regional_mode, "d_every": cfg.d_every,
+                      "d_reg_every": cfg.d_reg_every, "optim_name": cfg.optim_name,
+                      "learning_rate": cfg.learning_rate},
+           "steps": TRAIN_STEPS, "ms_per_step_kind": ms,
+           "step_ms": [{"kind": c["kind"], "ms": c["ms"]} for c in calls],
+           "plain_step_ms": [{"kind": c["kind"], "ms": c["ms"]} for c in pcalls],
+           "images_per_s": b * 1e3 / (ms["g"] + ms["d"]),
+           "images_per_s_with_r1": b * 1e3 / (ms["g"] + ms["d_r1"]),
+           "wall_s": run["wall_s"], "plain_wall_s": prun["wall_s"],
+           "peak_mem_gib_fit_remat_off": run["peak_mem_gib"], "launches": run["launches"],
+           "launches_per_step_kind": step_launches, "frozen_tensors": len(frozen),
+           "frozen_equal": frozen_equal, "metrics": logs, "plain_metrics": plogs,
+           "vs_plain_rel": rel, "limits": {"step0": TRAIN_STEP0_REL, "later": TRAIN_LATER_REL,
+                                           "r1_later": TRAIN_R1_LATER_REL}}
+    del state, coach
+
+    # a G step's peak memory with remat off and on, and the EMA's formula
+    (img, onehot) = batches[0]
+    for remat in (False, True):
+        rcoach = Coach(dataclasses.replace(cfg, remat=remat), nets, device="cuda")
+        rstate = _train_start(torch, rcoach, rgi_sd, d_sd)
+        ema0 = {k: v.clone() for k, v in rstate.ema_params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        rstate, _ = rcoach.g_step(rstate, img, onehot)
+        torch.cuda.synchronize()
+        rec[f"g_step_peak_mem_gib_remat_{'on' if remat else 'off'}"] = (
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+        rec[f"g_step_base_mem_gib_remat_{'on' if remat else 'off'}"] = base
+        if not remat:
+            worst = max(float((rstate.ema_params[k] - (ema0[k] * EMA_ACCUM + p.detach()
+                                                       * (1 - EMA_ACCUM))).abs().max())
+                        / max(float(ema0[k].abs().max()), 1e-30)
+                        for k, p in rstate.params.items())
+            rec["ema_formula_max_rel"] = worst
+            if worst > 1e-6:
+                problems.append(f"EMA off its formula by {worst}")
+        del rcoach, rstate, ema0
+        torch.cuda.empty_cache()
+
+    # one G step inside DDP at world size 1 (NCCL) against the same step
+    # outside it, from the same weights, and a second step outside it for
+    # the two runs' own difference: cuDNN's deterministic algorithms, but the
+    # encoder's bilinear-resize backward still adds with atomics, and Adam's
+    # first step moves every element by lr * sign(gradient), so an element
+    # whose gradient is rounding noise can step either way (at most 2 lr
+    # apart); the losses are held at TRAIN_DDP_REL, the parameters within
+    # 2 lr and, in norm over all of them, within 1e-2 of the step's move
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    results = []
+    try:
+        for with_group in (False, False, True):
+            group = None
+            try:
+                if with_group:
+                    group = make_process_group(1, 0, device="cuda",
+                                               init_method=f"tcp://localhost:{port}")
+                dcoach = Coach(cfg, nets, process_group=group, device="cuda")
+                dstate = _train_start(torch, dcoach, rgi_sd, d_sd)
+                dstate, metrics = dcoach.g_step(dstate, img, onehot)
+                results.append(({k: float(v) for k, v in metrics.items()},
+                                {k: p.detach().clone() for k, p in dstate.params.items()}))
+                del dcoach, dstate
+            finally:
+                if group is not None:
+                    dist.destroy_process_group()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (m0, p0), (m_again, p_again), (m1, p1) = results
+    init = {k: rgi_sd[k].to(p.device) for k, p in p0.items()}
+
+    def param_diff(p):
+        diff = sum(float((p[k] - p0[k]).square().sum()) for k in p0) ** 0.5
+        moved = sum(float((p0[k] - init[k]).square().sum()) for k in p0) ** 0.5
+        return max(float((p[k] - p0[k]).abs().max()) for k in p0) / cfg.learning_rate, diff / moved
+
+    ddp_rel = max(abs(m1[k] - m0[k]) / max(abs(m0[k]), 1e-12) for k in m0)
+    ddp_lr, ddp_norm = param_diff(p1)
+    again_lr, again_norm = param_diff(p_again)
+    rec.update(ddp_metrics_max_rel=ddp_rel, ddp_params_max_abs_in_lr=ddp_lr,
+               ddp_params_norm_rel_to_move=ddp_norm,
+               repeat_metrics_max_rel=max(abs(m_again[k] - m0[k]) / max(abs(m0[k]), 1e-12)
+                                          for k in m0),
+               repeat_params_max_abs_in_lr=again_lr, repeat_params_norm_rel_to_move=again_norm,
+               ddp_limits={"metrics_rel": TRAIN_DDP_REL, "params_max_abs_in_lr": 2.0,
+                           "params_norm_rel_to_move": 1e-2})
+    if ddp_rel > TRAIN_DDP_REL or ddp_lr > 2.0 or ddp_norm > 1e-2:
+        problems.append(f"DDP at world size 1 differs: metrics {ddp_rel}, params {ddp_lr} lr, "
+                        f"{ddp_norm} of the move")
+    del results, p0, p1, p_again, init, nets, batches, setup
+    torch.cuda.empty_cache()
+    log(f"[train] {json.dumps(rec)}")
+    if problems:
+        raise AssertionError(f"train: {problems}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1799,25 +2226,31 @@ def main() -> int:
     video = phase_video(torch, rgi_sd, bise_sd)
     zoo = phase_zoo(torch, rgi_sd, bise_sd)
     reenact = phase_reenact(torch, rgi_sd, bise_sd)
+    train = phase_train(torch, rgi_sd)
 
     # launches: K1-K3 on the aligned swaps of phase 3, the raw-frame calls of
-    # phase 5, the video clip of phase 6 (which alone runs the backward
-    # kernels), the zoo swaps of phase 7 and the reenacted swaps and the LIA
-    # drive of phase 8, K5 on the enhanced swaps of phases 4 and 5, K4 and K6
-    # on the upscaler runs of their routes
+    # phase 5, the video clip of phase 6, the zoo swaps of phase 7, the
+    # reenacted swaps and the LIA drive of phase 8 and the trainer's fit of
+    # phase 9; the backwards on the clip and the fit, the double backwards
+    # (R1's) on the fit alone; K5 on the enhanced swaps of phases 4 and 5,
+    # K4 and K6 on the upscaler runs of their routes
     launches = {name: sum(main_path[m]["launches"][name] for m in main_path)
                 + sum(r["launches"].get(name, 0) for r in raw.values())
                 + video["launches"][name] + zoo["launches"][name]
                 + reenact["launches"][name] + reenact["lia_launches"][name]
+                + train["launches"][name]
                 for name in PER_CALL["exact"]}
-    launches.update({name: video["launches"][name] for name in BACKWARD})
+    launches.update({name: video["launches"][name] + train["launches"][name]
+                     for name in BACKWARD})
+    launches.update({name: train["launches"][name] for name in DOUBLE_BACKWARD})
     launches["fused_swin_block"] = (enhance["launches"]["fused_swin_block"]
                                     + raw["swap_raw exact"]["launches"]["fused_swin_block"])
     for route in ("nhwc", "windowed"):
         kernel = ROUTE_KERNEL[route]
         launches[kernel] = enhance["routes"][route]["launches"][kernel]
 
-    # each kernel's first case, then the cases phase 7 adds
+    # each kernel's first case (the double backwards' are their
+    # DOUBLE_BACKWARD_CASES), then the cases phase 7 adds
     picked = [next(r for r in records if r["name"] == name) for name in KERNEL_INFO]
     picked += [next(r for r in records if (r["name"], r["case"]) == case) for case in ZOO_CASES]
     summary = []

@@ -121,11 +121,33 @@ def encoder_state_dict_from_jax(params: Mapping, prefix: str = "") -> dict[str, 
     return out
 
 
+def _convt(p: Mapping, name: str, out: dict) -> None:
+    """flax ConvTranspose (kh, kw, in, out), spatially flipped by the JAX
+    converter -> torch ConvTranspose2d (in, out, kh, kw)."""
+    out[f"{name}.weight"] = _t(np.asarray(p["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
+    out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _encoder_sean(p: Mapping, prefix: str, out: dict) -> None:
+    """FSEncoderSEAN params (the inverse of `convert_encoder_sean`)."""
+    for key, idx in (("head", 1), ("down_0", 4), ("down_1", 7)):
+        _conv(p[key], f"{prefix}model.{idx}", out)
+    _convt(p["up"], f"{prefix}model.10", out)
+    _conv(p["style_conv"], f"{prefix}style_module.1", out)
+    for i in range(3):
+        _conv(p[f"structure_{i}"], f"{prefix}structure_module.{3 * i}", out)
+
+
 def rgi_state_dict_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
     """RGINet `{"params", "buffers"}` -> port RGINet state dict (`encoder.*`,
-    `G.*`, `MLPs.*`, `latent_avg`)."""
+    `G.*`, `MLPs.*`, `latent_avg`); a SEAN encoder's params (its `head`)
+    give the SEAN layout."""
     p = variables["params"]
-    out = encoder_state_dict_from_jax(p["encoder"], "encoder.")
+    out: dict[str, torch.Tensor] = {}
+    if "head" in p["encoder"]:
+        _encoder_sean(p["encoder"], "encoder.", out)
+    else:
+        _encoder(p["encoder"], "encoder.", out)
     out.update(generator_state_dict_from_jax(p["generator"], "G."))
     for i in range(_count(p, "mlp_")):
         _linear(p[f"mlp_{i}"]["fc1"], f"MLPs.{i}.mlp.0", out)
@@ -382,6 +404,24 @@ def load_reference_checkpoint(path: str,
     return out
 
 
+def lpips_state_dict_from_reference(alex_sd: Mapping, lin_sd: Mapping) -> dict[str, torch.Tensor]:
+    """The port's LPIPS state dict from torchvision's AlexNet weights (keys
+    `features.{i}.*`, or `{i}.*`; the classifier is dropped) and the LPIPS
+    v0.1 lin heads (`{i}.1.weight` after the LPIPS repository's rename, or
+    `lin{i}.model.1.weight`), as `convert_lpips` reads them."""
+    from e4s2024_torch.models.lpips import LPIPS
+
+    out: dict[str, torch.Tensor] = {}
+    for key in LPIPS().state_dict():
+        if key.startswith("features."):
+            short = key[len("features."):]
+            out[key] = torch.as_tensor(alex_sd[key] if key in alex_sd else alex_sd[short])
+        else:  # lin{i}.model.1.weight
+            i = key[len("lin")]
+            out[key] = torch.as_tensor(lin_sd[key] if key in lin_sd else lin_sd[f"{i}.1.weight"])
+    return out
+
+
 def fold_bgr_mean_into_stem(state_dict: Mapping, cfg: Mapping,
                             mean_bgr=(104.0, 117.0, 123.0)) -> dict[str, torch.Tensor]:
     """A reference RetinaFace state dict (trained on BGR minus
@@ -442,6 +482,49 @@ def drop_generator_buffers(state_dict: Mapping) -> dict:
     blur and upsample, each of which must equal make_kernel([1, 3, 3, 1]) x 4
     (both run at factor 2; `drop_fir_buffers`)."""
     return drop_fir_buffers(state_dict, [(_FIR_KEY, 4.0)], _NOISE_KEY)
+
+
+_D_FIR_KEY = re.compile(r"^convs\.\d+\.(conv2|skip)\.0\.kernel$")
+
+
+def drop_discriminator_buffers(state_dict: Mapping) -> dict:
+    """A reference Discriminator state dict without the FIR `kernel` buffer
+    of each ResBlock's downsampling Blur (`convs.{i}.conv2.0.kernel`,
+    `convs.{i}.skip.0.kernel`), each of which must equal
+    make_kernel([1, 3, 3, 1]) (gain 1; `drop_fir_buffers`), and without DDP's
+    `module.` prefix."""
+    return drop_fir_buffers(strip_module_prefix(state_dict), [(_D_FIR_KEY, 1.0)])
+
+
+def discriminator_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
+    """Discriminator params -> port Discriminator state dict in the
+    reference's names (the inverse of the layout of `convert_discriminator`)."""
+    out: dict[str, torch.Tensor] = {}
+    _convlayer(params["conv_in"], "convs.0", out)
+    for i in range(_count(params, "res_")):
+        r, name = params[f"res_{i}"], f"convs.{i + 1}"
+        _convlayer(r["conv1"], f"{name}.conv1", out)
+        _convlayer(r["conv2"], f"{name}.conv2", out, downsample=True)
+        _conv(r["skip"]["conv"], f"{name}.skip.1", out, key="weight")
+    _convlayer(params["final_conv"], "final_conv", out)
+    _linear(params["final_linear_0"], "final_linear.0", out)
+    _linear(params["final_linear_1"], "final_linear.1", out)
+    return out
+
+
+def coach_state_from_jax(params: Mapping, buffers: Mapping, ema_params: Mapping,
+                         d_params: Mapping, step: int = 0) -> dict:
+    """A JAX CoachState's weights (numpy or array-like leaves) as the tree
+    that `training.coach.Coach.load_tree` loads: `params` and `ema_params`
+    as RGINet parameter names, `buffers` {"latent_avg"}, `d_params` as the
+    Discriminator's, and `step`. No optimizer state: the port's starts at
+    zero, as a fresh JAX one does."""
+    rgi = rgi_state_dict_from_jax({"params": params, "buffers": buffers})
+    ema = rgi_state_dict_from_jax({"params": ema_params, "buffers": buffers})
+    latent_avg = rgi.pop("latent_avg")
+    ema.pop("latent_avg")
+    return {"step": int(step), "params": rgi, "buffers": {"latent_avg": latent_avg},
+            "ema_params": ema, "d_params": discriminator_state_dict_from_jax(d_params)}
 
 
 def unwrap_envelope(state_dict: Mapping, *names: str) -> dict:

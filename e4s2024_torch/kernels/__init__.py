@@ -13,8 +13,11 @@ through the kernels.
 K1-K3 are differentiable: each wrapper is a `torch.autograd.Function`
 whose backward launches kernels too, counted under names of their own
 (`fused_leaky_relu_backward`, `upfirdn2d_backward`,
-`regional_scale_backward`). K4-K6 are forward-only and refuse inputs that
-require grad.
+`regional_scale_backward`). K1's and K2's backwards are differentiable
+once more, through the same kernels (`fused_leaky_relu_double_backward`,
+`upfirdn2d_double_backward`): R1's penalty runs through them. K3's
+backward is once-differentiable, and its second derivative raises. K4-K6
+are forward-only and refuse inputs that require grad.
 """
 
 from __future__ import annotations

@@ -32,9 +32,11 @@ def r1_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
     """R1 gradient penalty, E[||grad_x D(x)||^2] (reference adv_loss.py:29),
     differentiable through `torch.autograd.grad(create_graph=True)`.
 
-    The double backward runs on the plain versions only: the kernels'
-    backwards are once-differentiable, so through K1-K3 on a card the
-    second derivative raises until K1 gains a double backward."""
+    On a card the double backward runs through the kernels: K1's and K2's
+    backwards are differentiable, their gradients launching the same
+    kernels again (`fused_leaky_relu_double_backward`,
+    `upfirdn2d_double_backward`). K3's is once-differentiable, so a
+    `d_apply` that runs K3 raises here; the Discriminator runs none."""
     x = real_img.detach().requires_grad_(True)
     (grad,) = torch.autograd.grad(d_apply(x).sum(), x, create_graph=True)
     return grad.square().reshape(grad.shape[0], -1).sum(dim=1).mean()

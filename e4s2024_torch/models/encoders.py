@@ -1,9 +1,13 @@
-"""Mask-guided pSp-style encoder, the RGI encoder (reference
-models/encoders/psp_encoders.py:319 `FSEncoder_PSP`, helpers.py:56-144).
+"""Mask-guided encoders of the RGI net: the pSp-style IR-SE encoder
+(reference models/encoders/psp_encoders.py:319 `FSEncoder_PSP`,
+helpers.py:56-144), the default, and the SEAN-style encoder
+(psp_encoders.py:238 `FSEncoder_SEAN`), the reference's other
+`fsencoder_type`.
 
 Counterpart of `e4s2024_tpu/models/encoders.py` in NCHW, with the
 reference's state-dict names (`input_layer.{0,2}`,
-`body.{i}.res_layer.{1,2,3,5}`, `body.{i}.shortcut_layer.0`).
+`body.{i}.res_layer.{1,2,3,5}`, `body.{i}.shortcut_layer.0`; SEAN's
+`model.{1,4,7,10}`, `style_module.1`, `structure_module.{0,3,6}`).
 """
 
 from __future__ import annotations
@@ -114,3 +118,34 @@ class FSEncoderPSP(nn.Module):
             if i in self.taps:
                 codes.append(masked_average_pool(x, segmap))
         return torch.cat(codes, dim=-1), torch.zeros_like(x)
+
+
+def _in_lrelu() -> list[nn.Module]:
+    return [InstanceNorm(), nn.LeakyReLU(0.2)]
+
+
+class FSEncoderSEAN(nn.Module):
+    """SEAN-style per-region encoder (reference psp_encoders.py:238-316, the
+    in_size 256 flavour of networks.py:62): a reflect-padded conv to `ngf`
+    channels, two stride-2 convs, one transposed-conv upsample (128^2
+    features from a 256^2 input), each followed by InstanceNorm and
+    LeakyReLU(0.2); a tanh style head masked-average-pooled per region,
+    (B, K, 512); and a 3-conv structure branch to (B, 512, 16, 16)."""
+
+    def __init__(self, ngf: int = 32, output_nc: int = 512):
+        super().__init__()
+        self.model = nn.Sequential(
+            nn.ReflectionPad2d(1), nn.Conv2d(3, ngf, 3), *_in_lrelu(),
+            nn.Conv2d(ngf, ngf * 2, 3, 2, 1), *_in_lrelu(),
+            nn.Conv2d(ngf * 2, ngf * 4, 3, 2, 1), *_in_lrelu(),
+            nn.ConvTranspose2d(ngf * 4, ngf * 8, 3, 2, 1, output_padding=1), *_in_lrelu())
+        self.style_module = nn.Sequential(
+            nn.ReflectionPad2d(1), nn.Conv2d(ngf * 8, output_nc, 3), nn.Tanh())
+        self.structure_module = nn.Sequential(
+            nn.Conv2d(ngf * 8, 512, 3, 2, 1), *_in_lrelu(),
+            nn.Conv2d(512, 512, 3, 2, 1), *_in_lrelu(),
+            nn.Conv2d(512, 512, 3, 2, 1), *_in_lrelu())
+
+    def forward(self, x, segmap):
+        h = self.model(x)
+        return masked_average_pool(self.style_module(h), segmap), self.structure_module(h)

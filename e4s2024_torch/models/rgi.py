@@ -12,7 +12,7 @@ import math
 import torch
 from torch import nn
 
-from e4s2024_torch.models.encoders import FSEncoderPSP
+from e4s2024_torch.models.encoders import FSEncoderPSP, FSEncoderSEAN
 from e4s2024_torch.models.stylegan2 import EqualLinear, Generator
 from e4s2024_torch.ops.resize import resize_bilinear
 
@@ -34,16 +34,27 @@ class LocalMLP(nn.Module):
         return self.mlp(x).reshape(-1, self.num_w_layers, self.dim_style)
 
 
+def fsencoder_type_of(state_dict) -> str:
+    """"sean" for an RGI state dict with the SEAN encoder's layout (its
+    `encoder.model.1.weight`, as the JAX package's `convert_rgi` decides),
+    else "psp"."""
+    return "sean" if "encoder.model.1.weight" in state_dict else "psp"
+
+
 class RGINet(nn.Module):
-    """FSEncoderPSP + 12 LocalMLPs + regional Generator, W+ codes centred on
-    `latent_avg` (a buffer: loaded from checkpoints, never trained)."""
+    """FSEncoderPSP (or, with `fsencoder_type="sean"`, FSEncoderSEAN, whose
+    512-d style vectors the LocalMLPs then take) + 12 LocalMLPs + regional
+    Generator, W+ codes centred on `latent_avg` (a buffer: loaded from
+    checkpoints, never trained)."""
 
     def __init__(self, num_seg_cls: int = 12, out_size: int = 1024,
                  remaining_layer_idx: int = 13, split_layer_idx: int = 5,
                  channel_multiplier: int = 2, start_from_latent_avg: bool = True,
                  encoder_input_size: int = 256,
-                 encoder_num_units: tuple = (3, 4, 14, 3)):
+                 encoder_num_units: tuple = (3, 4, 14, 3), fsencoder_type: str = "psp"):
         super().__init__()
+        if fsencoder_type not in ("psp", "sean"):
+            raise ValueError(f"fsencoder_type must be 'psp' or 'sean', got {fsencoder_type!r}")
         n_latent = 2 * int(math.log2(out_size)) - 2
         if remaining_layer_idx != 17 and remaining_layer_idx > n_latent:
             raise ValueError(f"remaining_layer_idx={remaining_layer_idx} exceeds "
@@ -52,9 +63,13 @@ class RGINet(nn.Module):
         self.remaining_layer_idx = remaining_layer_idx
         self.start_from_latent_avg = start_from_latent_avg
         self.encoder_input_size = encoder_input_size
-        self.encoder = FSEncoderPSP(encoder_num_units)
+        if fsencoder_type == "sean":
+            self.encoder, dim_component = FSEncoderSEAN(), 512
+        else:
+            self.encoder, dim_component = FSEncoderPSP(encoder_num_units), 1280
         num_w = remaining_layer_idx if remaining_layer_idx != 17 else 18
-        self.MLPs = nn.ModuleList(LocalMLP(num_w_layers=num_w) for _ in range(num_seg_cls))
+        self.MLPs = nn.ModuleList(LocalMLP(dim_component, num_w_layers=num_w)
+                                  for _ in range(num_seg_cls))
         self.G = Generator(out_size, channel_multiplier=channel_multiplier,
                            split_layer_idx=split_layer_idx,
                            remaining_layer_idx=remaining_layer_idx)

@@ -322,3 +322,46 @@ class Generator(nn.Module):
                 skip = to_rgb(out, latent[:, 0, i + 2], skip=skip)
             i += 2
         return skip, (latent if return_latents else None), intermediate
+
+
+class Discriminator(nn.Module):
+    """StyleGAN2 discriminator with minibatch stddev (reference model.py:771;
+    `e4s2024_tpu/models/stylegan2.py::Discriminator`). State-dict names are
+    the reference's: `convs.0` a 1x1 ConvLayer from RGB, `convs.{1..}`
+    ResBlocks down to 4x4, `final_conv`, `final_linear.{0,1}`. A reference
+    file's Blur `kernel` buffers go through
+    `convert.drop_discriminator_buffers` first.
+
+    The minibatch stddev splits the batch into `min(B, stddev_group)` groups
+    of consecutive samples (B must be a multiple of the group), takes each
+    feature's population stddev across the groups and appends its mean over
+    C, H and W as one channel. The flatten before `final_linear` is NCHW,
+    the reference's own."""
+
+    def __init__(self, size: int = 1024, channel_multiplier: int = 2,
+                 stddev_group: int = 4):
+        super().__init__()
+        channels = channel_schedule(channel_multiplier)
+        layers: list[nn.Module] = [ConvLayer(3, channels[size], 1)]
+        in_ch = channels[size]
+        for i in range(int(math.log2(size)), 2, -1):
+            layers.append(ResBlock(in_ch, channels[2 ** (i - 1)]))
+            in_ch = channels[2 ** (i - 1)]
+        self.convs = nn.Sequential(*layers)
+        self.stddev_group = stddev_group
+        self.final_conv = ConvLayer(in_ch + 1, channels[4], 3)
+        self.final_linear = nn.Sequential(
+            EqualLinear(channels[4] * 4 * 4, channels[4], activation="fused_lrelu"),
+            EqualLinear(channels[4], 1))
+
+    def forward(self, x):
+        """x: (B, 3, size, size) in [-1, 1]. Returns (B, 1) logits."""
+        out = self.convs(x)
+        b, c, h, w = out.shape
+        group = min(b, self.stddev_group)
+        y = out.reshape(group, b // group, c, h, w)
+        stddev = torch.sqrt(y.var(dim=0, unbiased=False) + 1e-8)
+        stddev = stddev.mean(dim=(1, 2, 3)).reshape(b // group, 1, 1, 1)
+        stddev = stddev.repeat(group, 1, h, w)
+        out = self.final_conv(torch.cat([out, stddev], dim=1))
+        return self.final_linear(out.reshape(b, -1))

@@ -10,7 +10,6 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from e4s2024_torch import kernels
 from e4s2024_torch.kernels.build import library
@@ -52,32 +51,83 @@ def _launch_forward(x: torch.Tensor, bias: torch.Tensor | None,
     return out
 
 
+def _launch_backward(counter, grad: torch.Tensor, out: torch.Tensor,
+                     negative_slope: float, scale: float) -> torch.Tensor:
+    """One launch of K1's backward kernel (`kernels/csrc/fused_act.cu`):
+    `grad` scaled by the slope that the sign of `out` selects. Counted on
+    `counter`. Both may require grad: under `create_graph` the incoming
+    gradient does, and so does the saved output."""
+    name = counter.__name__
+    if grad.shape != out.shape:
+        raise ValueError(f"{name}: grad {tuple(grad.shape)} and out {tuple(out.shape)} differ")
+    kernels.check_input(name, "out", out, differentiable=True)
+    kernels.check_input(name, "grad", grad, dtype=out.dtype, differentiable=True)
+    grad_x = torch.empty_like(out)
+    status = library().e4s_fused_leaky_relu_backward(
+        grad.data_ptr(), out.data_ptr(), grad_x.data_ptr(), kernels.DTYPE_CODES[out.dtype],
+        out.numel(), negative_slope, scale, out.device.index, kernels.stream_of(out))
+    kernels.check_status(name, status)
+    counter.launches += 1
+    return grad_x
+
+
+class _FusedLeakyReLUBackward(torch.autograd.Function):
+    """K1's backward as a function of the incoming gradient: linear in
+    `grad`, so its own gradient is the same kernel on the gradient of the
+    gradient with the saved output's sign mask (counted as
+    `fused_leaky_relu_double_backward`). Its derivative in `out` is zero
+    almost everywhere (the slope is piecewise constant) and is returned as
+    None. This is what makes R1's double backward run through K1."""
+
+    @staticmethod
+    def forward(ctx, grad, out, negative_slope, scale):
+        ctx.save_for_backward(out)
+        ctx.slope, ctx.scale = negative_slope, scale
+        return _launch_backward(fused_leaky_relu_backward, grad, out, negative_slope, scale)
+
+    @staticmethod
+    def backward(ctx, grad_grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        (out,) = ctx.saved_tensors
+        return (fused_leaky_relu_double_backward(grad_grad.contiguous(), out, ctx.slope,
+                                                 ctx.scale), None, None, None)
+
+
 @kernels.counted("fused_leaky_relu_backward")
 def fused_leaky_relu_backward(grad: torch.Tensor, out: torch.Tensor,
                               negative_slope: float = 0.2,
                               scale: float = SQRT2) -> torch.Tensor:
     """K1's input gradient from its output: the plain version on the CPU,
     the backward kernel of `kernels/csrc/fused_act.cu` on a CUDA device
-    (grad and out of one shape and dtype)."""
+    (grad and out of one shape and dtype). Differentiable in `grad` on the
+    card too: its gradient launches the same kernel again
+    (`fused_leaky_relu_double_backward`)."""
     if kernels.use_plain(out):
         return fused_leaky_relu_backward_plain(grad, out, negative_slope, scale)
-    name = "fused_leaky_relu_backward"
-    if grad.shape != out.shape:
-        raise ValueError(f"{name}: grad {tuple(grad.shape)} and out {tuple(out.shape)} differ")
-    kernels.check_input(name, "out", out)
-    kernels.check_input(name, "grad", grad, dtype=out.dtype)
-    grad_x = torch.empty_like(out)
-    status = library().e4s_fused_leaky_relu_backward(
-        grad.data_ptr(), out.data_ptr(), grad_x.data_ptr(), kernels.DTYPE_CODES[out.dtype],
-        out.numel(), negative_slope, scale, out.device.index, kernels.stream_of(out))
-    kernels.check_status(name, status)
-    fused_leaky_relu_backward.launches += 1
-    return grad_x
+    return _FusedLeakyReLUBackward.apply(grad, out, negative_slope, scale)
+
+
+@kernels.counted("fused_leaky_relu_double_backward")
+def fused_leaky_relu_double_backward(grad_grad: torch.Tensor, out: torch.Tensor,
+                                     negative_slope: float = 0.2,
+                                     scale: float = SQRT2) -> torch.Tensor:
+    """The gradient of `fused_leaky_relu_backward` in its `grad`: the
+    backward kernel on `grad_grad` with `out`'s sign mask (the plain version
+    on the CPU). Not differentiable itself on the card: a third derivative
+    raises."""
+    if kernels.use_plain(out):
+        return fused_leaky_relu_backward_plain(grad_grad, out, negative_slope, scale)
+    name = "fused_leaky_relu_double_backward"
+    kernels.check_input(name, "grad_grad", grad_grad)
+    return _launch_backward(fused_leaky_relu_double_backward, grad_grad, out.detach(),
+                            negative_slope, scale)
 
 
 class _FusedLeakyReLU(torch.autograd.Function):
     """K1 forward; backward through its backward kernel from the saved
-    output, the bias gradient as that gradient summed over every axis but 1."""
+    output (`fused_leaky_relu_backward`, itself differentiable), the bias
+    gradient as that gradient summed over every axis but 1."""
 
     @staticmethod
     def forward(ctx, x, bias, negative_slope, scale):
@@ -88,7 +138,6 @@ class _FusedLeakyReLU(torch.autograd.Function):
         return out
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, grad):
         (out,) = ctx.saved_tensors
         grad_x = fused_leaky_relu_backward(grad.contiguous(), out, ctx.slope, ctx.scale)
@@ -105,8 +154,9 @@ def fused_leaky_relu(x: torch.Tensor, bias: torch.Tensor | None = None,
                      scale: float = SQRT2) -> torch.Tensor:
     """`leaky_relu(x + bias) * scale`: the plain version on the CPU, kernel K1
     on a CUDA device (float32 or bfloat16 in, float32 arithmetic).
-    Differentiable in x and bias: on the card the backward is K1's backward
-    kernel."""
+    Differentiable in x and bias at the first and second order: on the
+    card the backward is K1's backward kernel, and so is the backward's own
+    gradient (R1's double backward)."""
     if kernels.use_plain(x):
         return fused_leaky_relu_plain(x, bias, negative_slope, scale)
     name = "fused_leaky_relu"

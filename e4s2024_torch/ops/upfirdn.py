@@ -20,7 +20,9 @@ vertical pass.
 
 The input gradient is upfirdn2d itself: the flipped kernel, up and down
 swapped, pads from `_backward_pads`; on the card it launches K2 again,
-counted as `upfirdn2d_backward`.
+counted as `upfirdn2d_backward`. That gradient is linear in the incoming
+gradient, and its own gradient is K2's forward again (counted as
+`upfirdn2d_double_backward`), so R1's double backward runs through K2.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ import ctypes
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from e4s2024_torch import kernels
 from e4s2024_torch.kernels.build import library
@@ -159,29 +160,69 @@ def _launch(counter, x: torch.Tensor, kernel: torch.Tensor, up: int, down: int, 
     return out
 
 
+class _UpFirDn2dBackward(torch.autograd.Function):
+    """K2's backward launch as a function of the incoming gradient: K2 on
+    the flipped kernel with up and down swapped. It is linear in `grad`, so
+    its own gradient is K2's forward on the original taps, up, down and pad
+    (`upfirdn2d_double_backward`): R1's double backward runs through K2."""
+
+    @staticmethod
+    def forward(ctx, grad, kernel, up, down, pad, in_hw):
+        ctx.kernel, ctx.up, ctx.down, ctx.pad = kernel, up, down, pad
+        kh = kernel.shape[0]
+        return _launch(upfirdn2d_backward, grad, torch.flip(kernel, (0, 1)), down, up,
+                       kh - pad[0] - 1, in_hw)
+
+    @staticmethod
+    def backward(ctx, grad_grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None, None
+        return (upfirdn2d_double_backward(grad_grad.contiguous(), ctx.kernel, ctx.up, ctx.down,
+                                          ctx.pad), None, None, None, None, None)
+
+
 @kernels.counted("upfirdn2d_backward")
 def upfirdn2d_backward(grad: torch.Tensor, kernel: torch.Tensor, up: int, down: int,
                        pad: tuple[int, int], in_hw: tuple[int, int]) -> torch.Tensor:
     """The input gradient of `upfirdn2d(x, kernel, up, down, pad)` for x of
     spatial size `in_hw`: the plain version on the CPU, kernel K2 itself on
     a CUDA device, launched on the flipped kernel with up and down swapped
-    (square kernels: one leading pad serves both axes)."""
+    (square kernels: one leading pad serves both axes). Differentiable in
+    `grad`: its gradient is K2's forward (`upfirdn2d_double_backward`)."""
     if kernels.use_plain(grad):
         return upfirdn2d_backward_plain(grad, kernel, up, down, pad, in_hw)
     name = "upfirdn2d_backward"
     if grad.ndim != 4:
         raise ValueError(f"{name}: grad must be (N, C, H, W), got {tuple(grad.shape)}")
-    kernels.check_input(name, "grad", grad)
+    kernels.check_input(name, "grad", grad, differentiable=True)
     _check_kernel(name, kernel, up, down)
     kh, kw = kernel.shape
     if kh != kw:
         raise ValueError(f"{name}: the kernel takes one leading pad; {kh}x{kw} taps need two")
-    return _launch(upfirdn2d_backward, grad, torch.flip(kernel, (0, 1)), down, up,
-                   kh - pad[0] - 1, tuple(in_hw))
+    return _UpFirDn2dBackward.apply(grad, kernel, up, down, tuple(pad), tuple(in_hw))
+
+
+@kernels.counted("upfirdn2d_double_backward")
+def upfirdn2d_double_backward(grad_grad: torch.Tensor, kernel: torch.Tensor, up: int,
+                              down: int, pad: tuple[int, int]) -> torch.Tensor:
+    """The gradient of `upfirdn2d_backward` in its `grad`: upfirdn2d of
+    `grad_grad` (shaped like the forward's input) on the original taps, up,
+    down and pad; the plain version on the CPU, K2 on a CUDA device. Not
+    differentiable itself on the card: a third derivative raises."""
+    if kernels.use_plain(grad_grad):
+        return upfirdn2d_plain(grad_grad, kernel, up, down, pad)
+    name = "upfirdn2d_double_backward"
+    kernels.check_input(name, "grad_grad", grad_grad)
+    _check_kernel(name, kernel, up, down)
+    kh, kw = kernel.shape
+    out_hw = (out_size(grad_grad.shape[2], kh, up, down, pad),
+              out_size(grad_grad.shape[3], kw, up, down, pad))
+    return _launch(upfirdn2d_double_backward, grad_grad, kernel, up, down, pad[0], out_hw)
 
 
 class _UpFirDn2d(torch.autograd.Function):
-    """K2 forward; the input gradient through `upfirdn2d_backward`."""
+    """K2 forward; the input gradient through `upfirdn2d_backward`, itself
+    differentiable."""
 
     @staticmethod
     def forward(ctx, x, kernel, up, down, pad, out_hw):
@@ -190,7 +231,6 @@ class _UpFirDn2d(torch.autograd.Function):
         return _launch(upfirdn2d, x, kernel, up, down, pad[0], out_hw)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, grad):
         grad_x = upfirdn2d_backward(grad.contiguous(), ctx.kernel, ctx.up, ctx.down, ctx.pad,
                                     ctx.in_hw)
@@ -202,8 +242,9 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
               pad: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """upfirdn2d of an NCHW tensor: the plain version on the CPU, kernel K2
     on a CUDA device (float32 or bfloat16, float32 arithmetic; kernel taps at
-    most 4 x 4, up and down 1 or 2). Differentiable in x: on the card the
-    backward launches K2 on the flipped kernel (`upfirdn2d_backward`).
+    most 4 x 4, up and down 1 or 2). Twice differentiable in x: on the card
+    the backward launches K2 on the flipped kernel (`upfirdn2d_backward`)
+    and the backward's own gradient K2's forward.
 
     Returns (N, C, H', W') with H' = (H * up + pad0 + pad1 - kh) // down + 1.
     """

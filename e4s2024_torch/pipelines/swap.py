@@ -34,7 +34,7 @@ from e4s2024_torch import resolve_device
 from e4s2024_torch.convert import as_tensors, drop_generator_buffers
 from e4s2024_torch.data.labels import FFHQ_TO_12, NUM_SEG_CLASSES, map_labels
 from e4s2024_torch.models.bisenet import BiSeNet, bicubic_downsample
-from e4s2024_torch.models.rgi import RGINet
+from e4s2024_torch.models.rgi import RGINet, fsencoder_type_of
 from e4s2024_torch.ops.blend import laplacian_pyramid_blend_planar, soft_erosion_planar
 from e4s2024_torch.ops.morphology import dilation_planar
 from e4s2024_torch.ops.resize import resize_bilinear
@@ -76,7 +76,8 @@ class FaceSwapper:
         `G.*`, `MLPs.*`, `latent_avg`), as tensors or numpy arrays; the
         generator's fixed buffers of a reference checkpoint (noise maps, FIR
         kernels) are dropped (`convert.drop_generator_buffers`), every other
-        key loads strictly.
+        key loads strictly; a SEAN encoder's layout selects that encoder
+        (`rgi.fsencoder_type_of`).
       bisenet_state_dict: BiSeNet weights (`cp.*`, `ffm.*`, `conv_out*`).
       config: SwapConfig.
       landmark_fn: (H, W, 3) uint8 frame -> (68, 2) landmarks or None, for
@@ -102,7 +103,8 @@ class FaceSwapper:
         self.dtype = _DTYPES[config.compute_dtype]
         self.rgi = RGINet(num_seg_cls=config.num_seg_cls, out_size=config.out_size,
                           remaining_layer_idx=config.remaining_layer_idx,
-                          encoder_num_units=encoder_num_units)
+                          encoder_num_units=encoder_num_units,
+                          fsencoder_type=fsencoder_type_of(rgi_state_dict))
         self.rgi.load_state_dict(as_tensors(drop_generator_buffers(rgi_state_dict)),
                                  strict=True)
         self.bisenet = BiSeNet()

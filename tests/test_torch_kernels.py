@@ -63,7 +63,9 @@ def test_wrappers_registered_with_counters():
     assert set(kernels.WRAPPERS) == {"fused_leaky_relu", "upfirdn2d", "regional_scale",
                                      "swin_attention_nhwc", "fused_swin_block",
                                      "fused_window_attention", "fused_leaky_relu_backward",
-                                     "upfirdn2d_backward", "regional_scale_backward"}
+                                     "upfirdn2d_backward", "regional_scale_backward",
+                                     "fused_leaky_relu_double_backward",
+                                     "upfirdn2d_double_backward"}
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
 
@@ -210,6 +212,96 @@ def test_autograd_functions_with_plain_launches(monkeypatch):
             modulate._RegionalScale.apply(x, seg, s)
     finally:
         torch.set_num_threads(threads)
+
+def test_double_backward_functions_with_plain_launches(monkeypatch):
+    """The Functions that make K1's and K2's backwards differentiable, each
+    launch replaced by its plain version: gradcheck in float64 of the
+    backward as a function of the incoming gradient, whose own gradient is
+    the double backward (K1's backward kernel on the sign mask of the saved
+    output; K2's forward on the original taps)."""
+    def k2_plain(counter, x, k, up, down, pad0, out_hw):
+        kh = k.shape[0]
+        p1 = [(o - 1) * down + kh - n * up - pad0 for o, n in zip(out_hw, x.shape[2:])]
+        return upfirdn._upfirdn2d_native(x, k, up, down, (pad0, p1[0]), (pad0, p1[1]))
+
+    monkeypatch.setattr(fused_act, "_launch_backward",
+                        lambda counter, g, out, slope, scale:
+                        fused_act.fused_leaky_relu_backward_plain(g, out, slope, scale))
+    monkeypatch.setattr(upfirdn, "_launch", k2_plain)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = fused_act.fused_leaky_relu_plain(_randn(1, 2, 5, 6).double(), None)
+        g = _randn(1, 2, 5, 6, seed=1).double().requires_grad_(True)
+        assert torch.autograd.gradcheck(
+            lambda g: fused_act._FusedLeakyReLUBackward.apply(g, out, 0.2, 2 ** 0.5), (g,))
+        k = (upfirdn.make_kernel([1, 3, 3, 1]) * 4 + 0.01 * _randn(4, 4, seed=2)).double()
+        for up, down, pad in ((1, 1, (1, 1)), (2, 1, (2, 1)), (1, 2, (2, 2)), (2, 2, (2, 1))):
+            out_hw = tuple(upfirdn.out_size(n, 4, up, down, pad) for n in (5, 6))
+            gy = _randn(1, 2, *out_hw, seed=3).double().requires_grad_(True)
+            assert torch.autograd.gradcheck(
+                lambda gy: upfirdn._UpFirDn2dBackward.apply(gy, k, up, down, pad, (5, 6)),
+                (gy,))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_r1_through_the_functions_with_plain_launches(monkeypatch):
+    """R1 of a 16^2 Discriminator and its gradient in every parameter through
+    K1's and K2's Functions (each launch replaced by its plain version and
+    counted, the card's checks skipped) equal plain autograd, and each K1
+    and K2 of the penalty's forward has its double backward launched once."""
+    from e4s2024_torch.losses.losses import r1_penalty
+    from e4s2024_torch.models.stylegan2 import Discriminator
+
+    def counted(counter, fn):
+        counter.launches += 1
+        return fn
+
+    def k2_plain(counter, x, k, up, down, pad0, out_hw):
+        kh = k.shape[0]
+        p1 = [(o - 1) * down + kh - n * up - pad0 for o, n in zip(out_hw, x.shape[2:])]
+        return counted(counter, upfirdn._upfirdn2d_native(x, k, up, down, (pad0, p1[0]),
+                                                          (pad0, p1[1])))
+
+    torch.manual_seed(0)
+    d = Discriminator(16, 1)
+    x = _randn(4, 3, 16, 16)
+
+    def r1_and_grads():
+        r1 = r1_penalty(d, x)
+        return [r1.detach()] + list(torch.autograd.grad(r1 + d(x).mean(), list(d.parameters())))
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)  # the suite runs six workers
+    try:
+        want = r1_and_grads()
+    finally:
+        torch.set_num_threads(threads)
+    monkeypatch.setattr(fused_act, "_launch_forward", lambda x, b, s, sc: counted(
+        fused_act.fused_leaky_relu, fused_act.fused_leaky_relu_plain(x, b, s, sc)))
+    monkeypatch.setattr(fused_act, "_launch_backward", lambda c, g, out, s, sc: counted(
+        c, fused_act.fused_leaky_relu_backward_plain(g, out, s, sc)))
+    monkeypatch.setattr(upfirdn, "_launch", k2_plain)
+    monkeypatch.setattr(kernels, "use_plain", lambda t: False)
+    monkeypatch.setattr(kernels, "check_input", lambda *args, **kw: None)
+    kernels.reset_launch_counts()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        got = r1_and_grads()
+    finally:
+        torch.set_num_threads(threads)
+    counts = kernels.launch_counts()
+    # 7 K1 (convs.0, 2 per ResBlock, final_conv, final_linear.0) and 4 K2
+    # (2 per ResBlock) a forward; the penalty's forward is the one
+    # differentiated twice
+    assert counts["fused_leaky_relu"] == 14 and counts["upfirdn2d"] == 8, counts
+    assert counts["fused_leaky_relu_double_backward"] == 7, counts
+    assert counts["upfirdn2d_double_backward"] == 4, counts
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
 
 # ---------------------------------------------------------------- card
 
@@ -577,3 +669,74 @@ def test_generator_gradients_through_the_kernels(cuda, mode, monkeypatch):
     assert set(got) == set(want)
     for n, w in want.items():
         torch.testing.assert_close(got[n], w, rtol=1e-3, atol=1e-4 * float(w.abs().max()), msg=n)
+
+
+def _penalty_grads(fn, params, x):
+    """R1's pattern: ||d fn(x).sum() / dx||^2 and its gradient in `params`."""
+    xr = x.detach().requires_grad_(True)
+    (gx,) = torch.autograd.grad(fn(xr).sum(), xr, create_graph=True)
+    pen = gx.square().sum()
+    return [pen.detach()] + [g.detach() for g in torch.autograd.grad(pen, params)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 32, 33, 35), (4, 64, 256, 256)])
+def test_fused_leaky_relu_double_backward_kernel(cuda, shape):
+    """K1's double backward on the card against autograd twice through the
+    plain version: float32, within 1e-5 of the largest element. A scale c
+    before and after K1, so that the gradient K1's backward receives
+    depends on a parameter and the penalty's gradient in c needs the
+    double backward."""
+    x = _randn(*shape, device=cuda)
+    c = _randn(1, shape[1], 1, 1, device=cuda, seed=1).requires_grad_(True)
+    b = _randn(shape[1], device=cuda, seed=2).requires_grad_(True)
+    w = _randn(*shape, device=cuda, seed=3)
+
+    def fn(t):
+        return w * c * fused_act.fused_leaky_relu(t * c, b)
+
+    got = _penalty_grads(fn, [c], x)
+    assert fused_act.fused_leaky_relu_double_backward.launches == 1
+    with kernels.plain_versions_on_card():
+        want = _penalty_grads(fn, [c], x)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5 * float(e.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("up,down,pad,gain,shape", [
+    (1, 2, (2, 2), 1.0, (4, 64, 256, 256)), (1, 2, (1, 1), 1.0, (2, 32, 33, 34)),
+    (2, 1, (2, 1), 4.0, (2, 3, 64, 64)), (1, 1, (1, 1), 4.0, (1, 32, 129, 129))])
+def test_upfirdn2d_double_backward_kernel(cuda, up, down, pad, gain, shape):
+    """K2's double backward (its forward on the original taps, counted as
+    `upfirdn2d_double_backward`) against autograd twice through the plain
+    version, with a scale c before and after it (as in K1's case)."""
+    k = upfirdn.make_kernel([1, 3, 3, 1]) * gain
+    x = _randn(*shape, device=cuda)
+    c = _randn(1, shape[1], 1, 1, device=cuda, seed=1).requires_grad_(True)
+    oh, ow = (upfirdn.out_size(n, 4, up, down, pad) for n in shape[2:])
+    w = _randn(shape[0], shape[1], oh, ow, device=cuda, seed=2)
+
+    def fn(t):
+        y = upfirdn.upfirdn2d(fused_act.fused_leaky_relu_plain(t * c), k, up, down, pad)
+        return w * c * y
+
+    got = _penalty_grads(fn, [c], x)
+    assert upfirdn.upfirdn2d_double_backward.launches == 1
+    with kernels.plain_versions_on_card():
+        want = _penalty_grads(fn, [c], x)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, rtol=1e-5, atol=1e-5 * float(e.abs().max()))
+
+
+@pytest.mark.cuda
+def test_regional_scale_second_derivative_raises(cuda):
+    """K3's backward is once-differentiable: a second derivative through it
+    raises on the card rather than falling back."""
+    x = _randn(1, 8, 6, 6, device=cuda).requires_grad_(True)
+    seg = _one_hot(1, 4, 6, 6, device=cuda)
+    s = _randn(1, 4, 8, device=cuda, seed=1)
+    (gx,) = torch.autograd.grad(modulate.regional_scale(x, seg, s).square().sum(), x,
+                                create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        gx.sum().backward()

@@ -38,10 +38,13 @@ def test_update_rules_match_optax(name):
     grads = (rng.standard_normal((6, 40)) * np.logspace(-4, 1, 40)).astype(np.float32)
     tx = OPTAX[name](0.01)
     state = tx.init(jnp.zeros(40))
-    update, mine = optim.OPTIMIZERS[name](0.01), {}
-    for t, g in enumerate(grads, start=1):
+    mine = optim.OPTIMIZERS[name](0.01)
+    mine_state = mine.init({"w": torch.zeros(40)})
+    for g in grads:
         want, state = tx.update(jnp.asarray(g), state, jnp.zeros(40))
-        got = update(torch.from_numpy(g), mine, t)
+        got, mine_state = mine.update({"w": torch.from_numpy(g)}, mine_state,
+                                      {"w": torch.zeros(40)})
+        got = got["w"]
         # the bias corrections are float32 on both sides, but XLA's and
         # torch's float32 pow round decay^t differently at some t (1e-5
         # relative at t = 3 for 0.999); the rest is float32 rounding
