@@ -98,7 +98,25 @@ Phases, each of which must pass or the script exits non-zero:
    (NCCL) against the same step without it. Phase 2 also holds K1's and
    K2's double backwards (R1's) at the Discriminator's largest shapes, and
    R1 with its parameter gradient of a 256^2 Discriminator through the
-   kernels, against the plain versions.
+   kernels, against the plain versions;
+10. edit: the editor over the phase-3 RGI weights (1024^2, channel
+   multiplier 2, full IR-SE-50 at 256^2, BiSeNet at 512^2): `app.editor_parse`
+   and `Editor.invert` of one face, then its five edits each re-rendered by
+   `generate_from_label` in float32 exact, float32 fast and bfloat16 exact,
+   each against the same re-render with the plain versions forced (phase
+   3's bounds), the launches per re-render, the re-render's latency after a
+   warm-up, its peak memory and one `program_mfu` reading of the float32
+   exact re-render against the bfloat16 dense peak; the apps and eval:
+   `editor_resynthesize` after an `editor_apply_stroke`, `recon_cli` over 4
+   synthetic faces into a temporary directory (PNGs through `save_png`,
+   SSIM, PSNR, RMSE), a 3-step `interpolation_strip` and `mouth_transfer`
+   at 1024^2; and phase 6's clip with bfloat16 PTI (4 steps) and stitching
+   (2 steps): ms per step and peak memory beside phase 6's float32 ones,
+   the master weights float32, each PTI step's loss against the plain
+   versions' (TUNE_BF16_PTI_LIMITS), and a bfloat16 stitching run with a
+   border ring, from the clip's weights, against its plain-version run
+   (TUNE_BF16_RING_LIMITS). Phase 2 also holds K1-K3's bfloat16
+   backwards at PTI's shapes.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Float32 convolutions and matrix
@@ -240,6 +258,30 @@ TRAIN_STEP0_REL, TRAIN_LATER_REL, TRAIN_R1_LATER_REL = 1e-4, 1e-3, 5e-2
 TRAIN_DDP_REL = 1e-5
 TRAIN_METRICS = ("loss", "loss_l2", "loss_lpips", "loss_id", "loss_face_parsing",
                  "loss_g_adv", "d_loss", "r1_loss")
+
+# phase 10: the editor's configurations (dtype, regional mode), the timed
+# re-renders after a warm-up, the recon_cli items, the interpolation steps,
+# the bfloat16 tune's steps and its bounds against the plain versions, and
+# the bfloat16 backward cases phase 2 adds at PTI's shapes
+# (frames_per_chunk 2: B=2), reported in the summary line too. The bounds,
+# (first step, later steps), relative: a first step's loss is the forward's
+# alone (2.4e-5 to 1.0e-4 in five runs without a fault); later steps carry
+# Adam's steps on bfloat16 gradient noise: PTI's 2.4e-2 to 2.9e-2 in five
+# runs, the ring run's (from the clip's weights) 5.8e-3. Planted faults:
+# K1's backward at slope 0.25 gave PTI 6.3e-2 and the ring 5.9e-2, K3's
+# backward x0.9 the ring 7.4e-2 (PTI 3.6e-2), K2's x0.9 stayed in the noise
+# (Adam's steps do not see a gradient's scale; phase 2's bfloat16 backward
+# cases hold it). So the ring run, quiet, is the fault detector, and PTI's
+# bound only catches gross faults (train_fault_control.py --tune; NVIDIA
+# H100 80GB HBM3, 700.00 W)
+EDIT_CONFIGS = (("float32", "exact"), ("float32", "fast"), ("bfloat16", "exact"))
+EDIT_RENDERS, EDIT_RECON_ITEMS, EDIT_STRIP_STEPS = 3, 4, 3
+TUNE_BF16_PTI_STEPS, TUNE_BF16_STITCHING_STEPS = 4, 2
+TUNE_BF16_PTI_LIMITS, TUNE_BF16_RING_LIMITS = (2e-3, 8e-2), (2e-3, 2e-2)
+BF16_BACKWARD_CASES = (
+    ("fused_leaky_relu_backward", "StyledConv at 1024^2, PTI chunk B=2, bfloat16"),
+    ("upfirdn2d_backward", "blur after transposed conv, 1024^2, PTI chunk B=2, bfloat16"),
+    ("regional_scale_backward", "fast-mode StyledConv at 256^2, PTI chunk B=2, bfloat16"))
 
 # kernels whose bfloat16 instances must hold tensor-core instructions
 TENSOR_CORE_KERNELS = ("swin_block_kernel", "window_attention_kernel")
@@ -513,6 +555,7 @@ def phase_kernels(torch):
 
     records += _zoo_kernel_records(torch, randn)
     records += _backward_records(torch, randn, gen)
+    records += _bf16_backward_records(torch, randn, gen)
     records += _double_backward_records(torch, randn)
     _r1_check(torch)
     records += _swin_kernel_records(torch, randn)
@@ -660,6 +703,74 @@ def _backward_records(torch, randn, gen):
         if err > rec["err_bound"]:
             raise AssertionError(f"grad_scales disagrees with autograd: {rec}")
         del sets, x, seg, s, g
+    torch.cuda.empty_cache()
+    return records
+
+
+def _bf16_backward_records(torch, randn, gen):
+    """K1-K3's backwards in bfloat16 at the shapes bfloat16 PTI gives them
+    (phase 10: the 1024^2 generator, chunks of 2 frames): K1 after the
+    last StyledConv, K2 after the last transposed conv (its gradient a K2
+    pass on flipped taps), K3 in a fast-mode StyledConv at 256^2. Each
+    against the plain backward in float32 on the same bfloat16 inputs
+    (one rounding of the output: 2^-8 of the largest element); library
+    yardsticks in bfloat16 as in `_backward_records`. Their cases are
+    BF16_BACKWARD_CASES."""
+    import torch.nn.functional as F
+
+    from e4s2024_torch.ops import fused_act, modulate, upfirdn
+
+    bf16, dev = torch.bfloat16, torch.device("cuda")
+    (k1_label, k2_label, k3_label) = (label for _, label in BF16_BACKWARD_CASES)
+    rtol, atol = 2.0 ** -8, 1e-6
+    records = []
+
+    shape = (2, 32, 1024, 1024)
+    x, b = randn(*shape, dtype=bf16), randn(32)
+    g = randn(*shape, dtype=bf16)
+    out = fused_act.fused_leaky_relu_plain(x, b)
+    records.append(_case_record(
+        torch, "fused_leaky_relu_backward", k1_label,
+        lambda: fused_act.fused_leaky_relu_backward(g, out),
+        lambda: fused_act.fused_leaky_relu_backward_plain(g, out),
+        lambda: fused_act.fused_leaky_relu_backward_plain(g.float(), out.float()),
+        None, 3 * out.numel() * 2, 2 * out.numel(), rtol, atol,
+        symbol="fused_leaky_relu_backward_kernel"))
+    del x, g, out
+
+    k = upfirdn.make_kernel([1, 3, 3, 1]) * 4.0
+    shape, pad = (2, 32, 1025, 1025), (1, 1)
+    g_shape = (2, 32, upfirdn.out_size(1025, 4, 1, 1, pad), upfirdn.out_size(1025, 4, 1, 1, pad))
+    w = k.to(dev, bf16).expand(32, 1, 4, 4)
+    bytes_moved = (int(np.prod(shape)) + int(np.prod(g_shape))) * 2
+    sets = rotation(lambda: (randn(*g_shape, dtype=bf16),), bytes_moved)
+    records.append(_case_record(
+        torch, "upfirdn2d_backward", k2_label,
+        lambda g: upfirdn.upfirdn2d_backward(g, k, 1, 1, pad, shape[2:]),
+        lambda g: upfirdn.upfirdn2d_backward_plain(g, k, 1, 1, pad, shape[2:]),
+        lambda g: upfirdn.upfirdn2d_backward_plain(g.float(), k, 1, 1, pad, shape[2:]),
+        lambda g: F.conv2d(g, w, padding=2, groups=32), bytes_moved,
+        2 * 16 * int(np.prod(shape)), rtol, atol, sets=sets, symbol="upfirdn2d_kernel"))
+    del sets
+
+    c, hw = 128, 256
+
+    def make():
+        lbl = torch.randint(0, 12, (2, hw, hw), generator=gen, device=dev)
+        return (F.one_hot(lbl, 12).permute(0, 3, 1, 2).to(bf16).contiguous(),
+                randn(2, 12, c, dtype=bf16), randn(2, c, hw, hw, dtype=bf16))
+
+    bytes_moved = 2 * (2 * c * hw * hw + 12 * hw * hw + 12 * c) * 2
+    sets = rotation(make, bytes_moved)
+    records.append(_case_record(
+        torch, "regional_scale_backward", k3_label,
+        lambda seg, s, g: modulate.regional_scale_backward(g, seg, s),
+        lambda seg, s, g: modulate.regional_scale_plain(g, seg, s),
+        lambda seg, s, g: modulate.regional_scale_plain(g.float(), seg.float(), s.float()),
+        lambda seg, s, g: torch.einsum("bkhw,bkc,bchw->bchw", seg, s, g),
+        bytes_moved, 2 * 25 * c * hw * hw, rtol, atol, sets=sets,
+        symbol="regional_scale_kernel"))
+    del sets
     torch.cuda.empty_cache()
     return records
 
@@ -1309,17 +1420,29 @@ def _video_run(torch, kernels, pipe, rgi_sd, source, frames):
     return outs, rec, hist
 
 
-def _stitching_with_ring(torch, kernels, pipe, nets, u8, labels, sv):
+def _clip_inputs(torch, pipe, frames):
+    """The clip's aligned crops as uint8, their 12-class labels and style
+    vectors, from the pipeline's stages."""
+    with torch.no_grad():
+        crops, _ = pipe.align_frames(frames)
+        labels = pipe.parse_frames(crops)
+        sv = pipe.style_vectors(crops, labels)
+    return torch.clamp(torch.round(crops), 0, 255).to(torch.uint8), labels, sv
+
+
+def _stitching_with_ring(torch, kernels, pipe, nets, u8, labels, sv,
+                         compute_dtype="float32", limits=(1e-3, 1e-3)):
     """StitchingCoach at 1024^2 on two of the clip's crops whose labels are
     background in their outer eighth, so that the border ring is not empty
     and every step's gradient, the first included, holds the border term.
     The content targets are the generator's own synthesis, as in the
     pipeline. The kernels' run against the plain versions' from the same
-    weights. Returns (record, problems)."""
+    weights, the first step's loss within limits[0], the later ones' within
+    limits[1]. Returns (record, problems)."""
     from e4s2024_torch.ops.morphology import dilation
     from e4s2024_torch.training.pti import StitchingCoach, StitchingConfig
 
-    n, cfg = 2, StitchingConfig()
+    n, cfg = 2, StitchingConfig(compute_dtype=compute_dtype)
     m = labels.shape[-1] // 8
     inner = torch.zeros_like(labels[:n], dtype=torch.bool)
     inner[:, m:-m, m:-m] = True
@@ -1341,17 +1464,17 @@ def _stitching_with_ring(torch, kernels, pipe, nets, u8, labels, sv):
         phist, plain_launches = run()
     losses, plain_losses = [h["loss"] for h in hist], [h["loss"] for h in phist]
     rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses, plain_losses)]
-    rec = {"frames": n, "steps": STITCH_RING_STEPS, "ring_pixels": ring,
-           "losses": losses, "plain_losses": plain_losses,
+    rec = {"frames": n, "steps": STITCH_RING_STEPS, "compute_dtype": compute_dtype,
+           "ring_pixels": ring, "losses": losses, "plain_losses": plain_losses,
            "border_l2": [h["loss_border_l2"] for h in hist], "vs_plain_loss_rel": rel,
-           "limit": 1e-3, "launches": {k: launches[k] for k in ("fused_leaky_relu", "upfirdn2d",
-                                                                 "regional_scale", *BACKWARD)}}
+           "limits": limits, "launches": {k: launches[k] for k in ("fused_leaky_relu", "upfirdn2d",
+                                                                  "regional_scale", *BACKWARD)}}
     problems = []
     if ring == 0 or not hist[0]["loss_border_l2"] > 0:
         problems.append(f"stitching check: empty border ring ({ring} pixels)")
     if not all(np.isfinite(v) for v in losses + plain_losses):
         problems.append("stitching check: non-finite losses")
-    if max(rel) > 1e-3:
+    if rel[0] > limits[0] or max(rel[1:]) > limits[1]:
         problems.append(f"stitching check: losses differ from the plain versions' by {rel}")
     if any(launches[name] == 0 for name in BACKWARD) or any(plain_launches.values()):
         problems.append(f"stitching check: launches {launches}, plain run {plain_launches}")
@@ -1447,11 +1570,7 @@ def phase_video(torch, rgi_sd, bise_sd):
     log(f"[video] {json.dumps(rec)}")
     log(f"[video] plain versions: {json.dumps(prec)}")
 
-    with torch.no_grad():
-        crops, _ = pipe.align_frames(frames)
-        labels = pipe.parse_frames(crops)
-        sv = pipe.style_vectors(crops, labels)
-    u8 = torch.clamp(torch.round(crops), 0, 255).to(torch.uint8)
+    u8, labels, sv = _clip_inputs(torch, pipe, frames)
     ring_rec, ring_problems = _stitching_with_ring(torch, kernels, pipe, nets, u8, labels, sv)
     problems += ring_problems
     log(f"[video] stitching with a border ring: {json.dumps(ring_rec)}")
@@ -1471,7 +1590,7 @@ def phase_video(torch, rgi_sd, bise_sd):
                      peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         del coach
         log(f"[video] pti step {json.dumps(sweep)}")
-    del swapper, pipe, nets, crops, labels, sv, u8
+    del swapper, pipe, nets, labels, sv, u8
     torch.cuda.empty_cache()
     if problems:
         raise AssertionError(f"video: {problems}")
@@ -2194,6 +2313,270 @@ def phase_train(torch, rgi_sd):
     return rec
 
 
+def _to_u8(torch, img):
+    """(B, S, S, 3) float in [-1, 1] -> uint8, as the apps convert."""
+    return torch.clamp((img + 1.0) * 127.5, 0, 255).to(torch.uint8)
+
+
+def _edits(torch, editor, sv, label):
+    """The editor's five edits of one face, each as the (style vectors,
+    label map) the re-render takes: b's hair, nose and lip styles (b: the
+    components rotated by one), skin and eyes half way to b's, a seeded
+    latent direction, b's nose shape (b: the map moved 40 rows, 30
+    columns), the nose moved 12 rows and -8 columns."""
+    from e4s2024_torch.pipelines.editor import Editor
+
+    other = torch.roll(sv, 1, dims=1)
+    direction = np.random.default_rng(SEED + 10).standard_normal(1280).astype(np.float32)
+    label_b = np.roll(label, (40, -30), axis=(-2, -1))
+    return [
+        ("swap_component_style", editor.swap_component_style(sv, other, ["hair", "nose", "lip"]),
+         label),
+        ("interpolate_styles", editor.interpolate_styles(sv, other, 0.5, ["skin", "eyes"]), label),
+        ("apply_latent_direction", editor.apply_latent_direction(sv, direction, 0.5), label),
+        ("swap_component_mask", sv, Editor.swap_component_mask(label, label_b, "nose")),
+        ("translate_component", sv, Editor.translate_component(label, 5, dy=12, dx=-8)),
+    ]
+
+
+def _editor_config(torch, kernels, editor, img, label, mode):
+    """One configuration of the editor: invert the face, then each of the
+    five edits re-rendered through the kernels and with the plain versions
+    forced, the launches of each re-render, then EDIT_RENDERS timed
+    re-renders after a warm-up and their peak memory. Returns (record,
+    the last edit's inputs, problems)."""
+    sv = editor.invert(img.astype(np.float32)[None] / 127.5 - 1.0, label)
+    limit = (2, 0.05) if editor.dtype == torch.float32 else (255, 4.0)  # phase 3's bounds
+    edits, problems = {}, []
+    for name, sv_e, lbl_e in _edits(torch, editor, sv, label):
+        kernels.reset_launch_counts()
+        out = editor.generate_from_label(sv_e, lbl_e, regional_mode=mode)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        with kernels.plain_versions_on_card():
+            plain = editor.generate_from_label(sv_e, lbl_e, regional_mode=mode)
+        diff = (_to_u8(torch, out).int() - _to_u8(torch, plain).int()).abs()
+        edits[name] = {"vs_plain_max_abs": int(diff.max()),
+                       "vs_plain_mean_abs": float(diff.float().mean()), "launches": launches}
+        if (out.shape != (1, 1024, 1024, 3) or not bool(torch.isfinite(out).all())
+                or launches != PER_CALL[mode] or int(diff.max()) > limit[0]
+                or float(diff.float().mean()) > limit[1]):
+            problems.append(f"{editor.dtype} {mode} {name}: {edits[name]}, shape "
+                            f"{tuple(out.shape)}, limits {limit}")
+    editor.generate_from_label(sv_e, lbl_e, regional_mode=mode)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    latencies = []
+    for _ in range(EDIT_RENDERS):
+        t0 = time.perf_counter()
+        editor.generate_from_label(sv_e, lbl_e, regional_mode=mode)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    rec = {"dtype": str(editor.dtype)[6:], "mode": mode, "render_ms": latencies,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "edits": edits, "limits": {"max_abs": limit[0], "mean_abs": limit[1]}}
+    return rec, (sv_e, lbl_e), problems
+
+
+def _edit_apps(torch, kernels, swapper, editor, img, label):
+    """The apps and eval over the phase-3 swapper and the float32 editor:
+    a stroke and `editor_resynthesize`, `recon_cli` over EDIT_RECON_ITEMS
+    synthetic faces into a temporary directory, `interpolation_strip` and
+    `mouth_transfer` at 1024^2. Returns (record, launches, problems)."""
+    import tempfile
+
+    from e4s2024_torch import app, research
+
+    problems = []
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stroke = np.zeros((1024, 1024), np.float32)
+    stroke[300:520, 380:700] = 1.0
+    edited = app.editor_apply_stroke(label[0], stroke, 4)
+    out = app.editor_resynthesize(swapper, img, edited)
+    rec = {"resynthesize_ms": (time.perf_counter() - t0) * 1e3,
+           "stroke_pixels": int((edited != label[0]).sum())}
+    if out.shape != (1024, 1024, 3) or out.dtype != np.uint8 or rec["stroke_pixels"] == 0:
+        problems.append(f"editor_resynthesize: {out.shape} {out.dtype}, {rec}")
+
+    faces = _zoo_inputs(EDIT_RECON_ITEMS)[0]
+    items = [(f.astype(np.float32) / 127.5 - 1.0, app.editor_parse(swapper, f)) for f in faces]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        metrics = app.recon_cli(swapper, items, d)
+        rec["recon_cli_s"] = time.perf_counter() - t0
+        pngs = sorted(p.name for p in Path(d).glob("*_recon.png"))
+        rec["recon_png_bytes"] = [(Path(d) / p).stat().st_size for p in pngs]
+        rec["recon_metrics"] = metrics
+        if (len(pngs) != EDIT_RECON_ITEMS or not (Path(d) / "metrics.txt").exists()
+                or not all(np.isfinite(v) for v in metrics.values())):
+            problems.append(f"recon_cli: {pngs}, {metrics}")
+
+    t0 = time.perf_counter()
+    strip = research.interpolation_strip(editor, faces[0], faces[1], items[0][1], items[1][1],
+                                         steps=EDIT_STRIP_STEPS)
+    rec["strip_ms"] = (time.perf_counter() - t0) * 1e3
+    want = (1024, (EDIT_STRIP_STEPS + 2) * 1024 + (EDIT_STRIP_STEPS + 1) * 4, 3)
+    if strip.shape != want or strip.dtype != np.uint8:
+        problems.append(f"interpolation_strip: {strip.shape}, expected {want}")
+    # the aligned crop's mouth region at 512^2 (a random parse has no mouth
+    # classes), resized to the faces inside
+    mouth = np.zeros((512, 512), np.float32)
+    mouth[330:390, 190:322] = 1.0
+    combined, m, seam = research.mouth_transfer(faces[1], faces[0], mouth, device="cuda")
+    rec["mouth_pixels"], rec["seam_pixels"] = int((m > 0).sum()), int((seam > 0).sum())
+    if (combined.shape != (1024, 1024, 3) or m.shape != seam.shape != (1024, 1024)
+            or rec["seam_pixels"] == 0):
+        problems.append(f"mouth_transfer: {combined.shape} {m.shape} {seam.shape}, {rec}")
+    launches = kernels.launch_counts()
+    return rec, launches, problems
+
+
+def _tune_setup(torch, rgi_sd, bise_sd):
+    """Phase 6's clip, landmark stack, float32 exact swapper and loss nets."""
+    import warnings
+
+    from e4s2024_torch.pipelines.detect import default_landmarker
+    from e4s2024_torch.pipelines.swap import FaceSwapper, SwapConfig
+    from e4s2024_torch.profile_swap import loss_nets, video_clip
+
+    source, frames = video_clip()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # random landmark weights, said in phase 5
+        landmarker = default_landmarker(device="cuda")
+    swapper = FaceSwapper(rgi_sd, bise_sd, SwapConfig(), landmark_fn=landmarker, device="cuda")
+    return swapper, loss_nets("cuda"), source, frames
+
+
+def _tune_pipeline(swapper, nets, pti_steps, stitching_steps):
+    """The video pipeline with bfloat16 PTI and stitching steps."""
+    from e4s2024_torch.pipelines.video import FaceSwapVideoPipeline, VideoSwapConfig
+    from e4s2024_torch.training.pti import PTIConfig, StitchingConfig
+
+    cfg = VideoSwapConfig(
+        pti=PTIConfig(max_pti_steps=pti_steps, compute_dtype="bfloat16"),
+        stitching=StitchingConfig(max_steps=stitching_steps, compute_dtype="bfloat16"),
+        frames_per_batch=4)
+    return FaceSwapVideoPipeline(swapper, cfg, loss_params=nets)
+
+
+def _tune_compare(hist, phist):
+    """Each step's loss through the kernels against the plain versions'
+    (relative), PTI and stitching; PTI's steps over TUNE_BF16_PTI_LIMITS. The
+    clip's stitching is recorded only: the random parse leaves its border
+    ring empty, so its first gradient is bfloat16 rounding noise, which
+    Adam's lr-1e-2 steps of either sign turn into differences of order 1
+    (the ring run of `_stitching_with_ring` holds stitching instead)."""
+    rel = {name: [abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1e-12)
+                  for a, b in zip(hist[name], phist[name])] for name in ("pti", "stitching")}
+    problems = []
+    first, later = TUNE_BF16_PTI_LIMITS
+    if rel["pti"][0] > first or max(rel["pti"][1:]) > later:
+        problems.append(f"PTI losses differ from the plain versions' by {rel['pti']}")
+    if not all(np.isfinite(m["loss"]) for h in (hist, phist) for v in h.values() for m in v):
+        problems.append("non-finite tuning losses")
+    return rel, problems
+
+
+def _tune_bf16(torch, kernels, rgi_sd, bise_sd, video):
+    """The phase-6 clip with bfloat16 PTI and stitching steps: a warm-up
+    clip (one step each), the measured clip, the same clip with the plain
+    versions forced on from the same weights. Returns (record, launches,
+    problems)."""
+    swapper, nets, source, frames = _tune_setup(torch, rgi_sd, bise_sd)
+    _video_run(torch, kernels, _tune_pipeline(swapper, nets, 1, 1), rgi_sd, source, frames)
+    pipe = _tune_pipeline(swapper, nets, TUNE_BF16_PTI_STEPS, TUNE_BF16_STITCHING_STEPS)
+    written = []
+    write_back = pipe._write_back
+    pipe._write_back = lambda state: (written.append(sorted({
+        str(v.dtype) for v in state.values() if v.is_floating_point()})), write_back(state))
+    outs, rec, hist = _video_run(torch, kernels, pipe, rgi_sd, source, frames)
+    with kernels.plain_versions_on_card():
+        _, prec, phist = _video_run(torch, kernels, pipe, rgi_sd, source, frames)
+    rel, problems = _tune_compare(hist, phist)
+    # the ring run from the clip's starting weights: the clip's stitching
+    # leaves them wherever its noise-driven steps went
+    swapper.rgi.load_state_dict(rgi_sd)
+    u8, labels, sv = _clip_inputs(torch, pipe, frames)
+    ring, ring_problems = _stitching_with_ring(torch, kernels, pipe, nets, u8, labels, sv,
+                                               "bfloat16", TUNE_BF16_RING_LIMITS)
+    problems += ring_problems
+    rec.update(vs_plain_loss_rel=rel, limits=TUNE_BF16_PTI_LIMITS, master_dtypes=written,
+               stitching_with_ring=ring,
+               plain_clip_s=prec["clip_s"], plain_losses=prec["losses"],
+               float32_ms_per_pti_step=video["ms_per_pti_step"],
+               float32_ms_per_stitching_step=video["ms_per_stitching_step"],
+               float32_peak_mem_gib=video["peak_mem_gib"])
+    if any(dtypes != ["torch.float32"] for dtypes in written) or not written:
+        problems.append(f"master weights not float32: {written}")
+    if not min(rec["losses"]["pti"]) < rec["losses"]["pti"][0]:
+        problems.append("bfloat16 PTI's lowest loss is not below its first")
+    if len(outs) != len(frames) or any(o.shape != f.shape for o, f in zip(outs, frames)):
+        problems.append("bad frames from the bfloat16-tuned clip")
+    for name in ("fused_leaky_relu", "upfirdn2d", "regional_scale"):
+        if rec["launches"][name] == 0 or rec["launches"][name + "_backward"] == 0:
+            problems.append(f"{name} or its backward never launched: {rec['launches']}")
+    if any(prec["launches"].values()):
+        problems.append(f"the plain run launched kernels: {prec['launches']}")
+    launches = {k: rec["launches"][k] + ring["launches"].get(k, 0) for k in rec["launches"]}
+    del swapper, nets, pipe, u8, labels, sv
+    torch.cuda.empty_cache()
+    return rec, launches, problems
+
+
+def phase_edit(torch, rgi_sd, bise_sd, video):
+    """The editor, the apps and eval, and bfloat16 tuning (see the module
+    docstring, phase 10). Returns the record, its launches under
+    "launches"."""
+    from e4s2024_torch import app, kernels
+    from e4s2024_torch.pipelines.editor import Editor
+    from e4s2024_torch.pipelines.swap import FaceSwapper, SwapConfig
+    from e4s2024_torch.utils.mfu import program_mfu
+
+    t_phase = time.perf_counter()
+    swapper = FaceSwapper(rgi_sd, bise_sd, SwapConfig(), device="cuda")
+    img = _inputs(1024)[0][0]
+    label = app.editor_parse(swapper, img)[None]
+    problems, configs, launches = [], [], {}
+    f32_exact = None
+    for dtype, mode in EDIT_CONFIGS:
+        editor = (Editor(swapper.rgi) if dtype == "float32" else
+                  Editor.from_state_dict(rgi_sd, device="cuda", compute_dtype=dtype))
+        rec, last, probs = _editor_config(torch, kernels, editor, img, label, mode)
+        problems += probs
+        for name, e in rec["edits"].items():
+            for k, v in e["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        if (dtype, mode) == ("float32", "exact"):
+            f32_exact = editor
+            seconds = float(np.mean(rec["render_ms"])) / 1e3
+            rec["mfu"] = program_mfu(lambda: editor.generate_from_label(*last, "exact"), seconds,
+                                     kind=torch.cuda.get_device_name(0))
+            log(f"[edit] mfu of the float32 exact re-render against the bf16 dense peak: "
+                f"{json.dumps(rec['mfu'])}")
+        log(f"[edit] {json.dumps(rec)}")
+        configs.append(rec)
+        del editor
+        torch.cuda.empty_cache()
+
+    apps, app_launches, probs = _edit_apps(torch, kernels, swapper, f32_exact, img, label)
+    problems += probs
+    log(f"[edit] apps: {json.dumps(apps)}")
+    del swapper, f32_exact
+    torch.cuda.empty_cache()
+
+    tune, tune_launches, probs = _tune_bf16(torch, kernels, rgi_sd, bise_sd, video)
+    problems += probs
+    log(f"[edit] bfloat16 tuning: {json.dumps(tune)}")
+    for counts in (app_launches, tune_launches):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"[edit] phase 10: {time.perf_counter() - t_phase:.1f} s")
+    if problems:
+        raise AssertionError(f"edit: {problems}")
+    return {"configs": configs, "apps": apps, "tune": tune, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2227,21 +2610,23 @@ def main() -> int:
     zoo = phase_zoo(torch, rgi_sd, bise_sd)
     reenact = phase_reenact(torch, rgi_sd, bise_sd)
     train = phase_train(torch, rgi_sd)
+    edit = phase_edit(torch, rgi_sd, bise_sd, video)
 
     # launches: K1-K3 on the aligned swaps of phase 3, the raw-frame calls of
     # phase 5, the video clip of phase 6, the zoo swaps of phase 7, the
-    # reenacted swaps and the LIA drive of phase 8 and the trainer's fit of
-    # phase 9; the backwards on the clip and the fit, the double backwards
-    # (R1's) on the fit alone; K5 on the enhanced swaps of phases 4 and 5,
-    # K4 and K6 on the upscaler runs of their routes
+    # reenacted swaps and the LIA drive of phase 8, the trainer's fit of
+    # phase 9 and the editor, apps and bfloat16-tuned clip of phase 10; the
+    # backwards on the clips and the fit, the double backwards (R1's) on the
+    # fit alone; K5 on the enhanced swaps of phases 4 and 5, K4 and K6 on
+    # the upscaler runs of their routes
     launches = {name: sum(main_path[m]["launches"][name] for m in main_path)
                 + sum(r["launches"].get(name, 0) for r in raw.values())
                 + video["launches"][name] + zoo["launches"][name]
                 + reenact["launches"][name] + reenact["lia_launches"][name]
-                + train["launches"][name]
+                + train["launches"][name] + edit["launches"].get(name, 0)
                 for name in PER_CALL["exact"]}
     launches.update({name: video["launches"][name] + train["launches"][name]
-                     for name in BACKWARD})
+                     + edit["launches"].get(name, 0) for name in BACKWARD})
     launches.update({name: train["launches"][name] for name in DOUBLE_BACKWARD})
     launches["fused_swin_block"] = (enhance["launches"]["fused_swin_block"]
                                     + raw["swap_raw exact"]["launches"]["fused_swin_block"])
@@ -2250,9 +2635,10 @@ def main() -> int:
         launches[kernel] = enhance["routes"][route]["launches"][kernel]
 
     # each kernel's first case (the double backwards' are their
-    # DOUBLE_BACKWARD_CASES), then the cases phase 7 adds
+    # DOUBLE_BACKWARD_CASES), then the cases phases 7 and 10 add
     picked = [next(r for r in records if r["name"] == name) for name in KERNEL_INFO]
-    picked += [next(r for r in records if (r["name"], r["case"]) == case) for case in ZOO_CASES]
+    picked += [next(r for r in records if (r["name"], r["case"]) == case)
+               for case in ZOO_CASES + BF16_BACKWARD_CASES]
     summary = []
     for rec in picked:
         source, replaces = KERNEL_INFO[rec["name"]]

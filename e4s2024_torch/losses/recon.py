@@ -34,7 +34,9 @@ class ReconCriterion:
     the port's module or its state dict; a missing entry disables its term.
 
     Called with (recon, img), both (B, 3, S, S) in [-1, 1], it returns
-    (loss, metrics), the metrics as tensors."""
+    (loss, metrics), the metrics as tensors. The L2 term runs in the images'
+    dtype, the loss nets in float32 (bfloat16 images are cast, as the JAX
+    package's float32 nets promote them)."""
 
     def __init__(self, loss_params: Mapping, lpips_lambda: float = 0.8,
                  id_lambda: float = 0.1, face_parsing_lambda: float = 0.1,
@@ -50,6 +52,7 @@ class ReconCriterion:
             l2 = (recon - img).square().mean()
             loss = loss + self.l2_lambda * l2
             metrics["loss_l2"] = l2
+        recon, img = recon.float(), img.float()
         if self.lpips_lambda > 0 and "lpips" in self.nets:
             lp = multiscale_lpips(self.nets["lpips"], recon, img)
             loss = loss + self.lpips_lambda * lp

@@ -19,15 +19,18 @@ Stages:
 
 The tuned weights are written back into the swapper (as the JAX package
 writes them into `swapper.rgi_variables`), so a second clip through the same
-pipeline starts from the first clip's tuned generator. Tuning runs in
-float32: the pipeline refuses a bfloat16 swapper. Video files are read and
-written by `e4s2024_torch.video_io`; this module takes frames as arrays.
+pipeline starts from the first clip's tuned generator. The coaches tune the
+swapper's net in its own dtype: a bfloat16 swapper's weights are tuned in
+bfloat16, as the JAX package tunes the bfloat16 variables of such a
+swapper; for a float32 swapper `PTIConfig.compute_dtype` and
+`StitchingConfig.compute_dtype` set the precision of the steps. Video files
+are read and written by `e4s2024_torch.video_io`; this module takes frames
+as arrays.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from dataclasses import dataclass, field
 from typing import Callable, Mapping
 
@@ -43,6 +46,7 @@ from e4s2024_torch.pipelines.alignment import (
 from e4s2024_torch.pipelines.mask_merge import swap_comp_style_vector, swap_head_mask
 from e4s2024_torch.pipelines.swap import FaceSwapper, SwapConfig
 from e4s2024_torch.training.pti import PTICoach, PTIConfig, StitchingCoach, StitchingConfig
+from e4s2024_torch.utils.observability import StageTimer
 
 
 def _to_u8(x: torch.Tensor) -> torch.Tensor:
@@ -89,23 +93,6 @@ def _to_host_async(t: torch.Tensor):
     return host, event
 
 
-class StageTimer:
-    """Wall time of each stage, ended by a device synchronisation (for
-    profiling: the synchronisations cost throughput). `times` holds ms by
-    stage name."""
-
-    def __init__(self):
-        self.times: dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str, sync=None):
-        t0 = time.perf_counter()
-        yield
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        self.times[name] = self.times.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
-
-
 @dataclass
 class VideoSwapConfig:
     swap: SwapConfig = field(default_factory=SwapConfig)
@@ -123,7 +110,7 @@ class VideoSwapConfig:
 class FaceSwapVideoPipeline:
     """Swap `source_img`'s identity into every frame of a clip.
 
-    `swapper` provides the nets (float32); `loss_params` the criterion's
+    `swapper` provides the nets (float32 or bfloat16); `loss_params` the criterion's
     nets for PTI and stitching ("lpips", "arcface", "parser": modules or
     state dicts). Hooks, all optional: `driven_hook(source_crop,
     target_crops)` poses the source toward each frame (numpy in, (F, S, S,
@@ -136,9 +123,6 @@ class FaceSwapVideoPipeline:
     def __init__(self, swapper: FaceSwapper, cfg: VideoSwapConfig = VideoSwapConfig(),
                  loss_params: Mapping | None = None,
                  driven_hook: Callable | None = None, recolorer=None, enhancer=None):
-        if swapper.dtype != torch.float32:
-            raise ValueError(f"the video swap tunes the generator in float32; the swapper "
-                             f"runs {swapper.cfg.compute_dtype}")
         self.swapper, self.cfg = swapper, cfg
         self.loss_params = loss_params or {}
         self.driven_hook, self.recolorer, self.enhancer = driven_hook, recolorer, enhancer

@@ -16,7 +16,17 @@ Both step in a plain loop: the JAX package's `scan_steps`, which fuses
 optimizer steps into one XLA program, has no counterpart here. Adam runs over the parameters that
 `_g_trainable_mask` selects (torch's Adam is optax's: eps outside the square
 root); the rest are frozen. `remat` recomputes the synthesis in the backward
-pass (`torch.utils.checkpoint`). Tuning runs in float32.
+pass (`torch.utils.checkpoint`).
+
+Precision, as in the JAX package: the master weights keep the net's dtype.
+A float32 net with `compute_dtype="bfloat16"` casts, in every step, its
+parameters and buffers, the frames, the one-hot, the style vectors and the
+recolor targets to bfloat16, runs the synthesis and the losses in bfloat16
+(the loss nets in float32 on the bfloat16 images), and takes the gradients
+back through the cast in float32. A bfloat16 net (a bfloat16 swapper's) is
+tuned in bfloat16 whatever `compute_dtype` says, as the JAX package tunes
+the bfloat16 variables and style vectors of such a swapper. Adam runs on
+the master weights; the loss and metrics come back in float32.
 
 `tune` works on a copy of the coach's net and returns its tuned state dict
 and the per-step metrics as host floats, fetched once at the end; the net
@@ -26,12 +36,15 @@ it was given is left as it was.
 from __future__ import annotations
 
 import copy
+import itertools
 from dataclasses import dataclass
 from typing import Mapping
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from e4s2024_torch.losses.recon import ReconCriterion
@@ -44,6 +57,7 @@ from e4s2024_torch.training.coach import TrainConfig, _g_trainable_mask
 _NON_FACE = (0, 4, 11)
 # the recolor term's foreground (reference video_swap_ft_coach.py:296-300)
 _RECOLOR_FG = (1, 2, 3, 5, 6, 7, 8, 9, 10)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def to_pm1_f32(x: torch.Tensor) -> torch.Tensor:
@@ -71,11 +85,6 @@ def foreground_mask_from_label(label: torch.Tensor, size: int) -> torch.Tensor:
     hair or earring), resized bilinearly."""
     fg = (~_non_face(label))[:, None].float()
     return resize_bilinear(fg, (size, size))
-
-
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    """(F, S, S, 3) uint8 or float [-1, 1] -> (F, 3, S, S) float32 [-1, 1]."""
-    return to_pm1_f32(x).permute(0, 3, 1, 2)
 
 
 def _largest_divisor(n: int, at_most: int) -> int:
@@ -114,8 +123,8 @@ class PTIConfig:
     # package draws them (a permutation from sample_seed, consumed
     # frames_per_step at a time, reshuffled when exhausted); None: whole clip
     frames_per_step: int | None = None
-    # float32 only: bfloat16 tuning needs float32 master weights beside a
-    # bfloat16 forward, which this port does not have yet
+    # "bfloat16" runs the synthesis and the losses in bfloat16; the master
+    # weights and Adam stay in the net's dtype
     compute_dtype: str = "float32"
     sample_seed: int = 0
 
@@ -134,6 +143,23 @@ class StitchingConfig:
     regional_mode: str = "exact"
     remat: bool = True
     frames_per_chunk: int | None = 2
+    # as PTIConfig's (the JAX package's StitchingConfig has no such field
+    # and tunes in its variables' dtype)
+    compute_dtype: str = "float32"
+
+
+class _Synthesis(nn.Module):
+    """An RGINet's style codes and regional synthesis as one forward, for
+    `functional_call` on cast weights."""
+
+    def __init__(self, net: RGINet, regional_mode: str):
+        super().__init__()
+        self.net, self.regional_mode = net, regional_mode
+
+    def forward(self, style_vectors, onehot):
+        codes = self.net.cal_style_codes(style_vectors)
+        img, _, _ = self.net.gen_img(None, codes, onehot, regional_mode=self.regional_mode)
+        return img
 
 
 class _Coach:
@@ -142,10 +168,14 @@ class _Coach:
     chunks and the metrics fetched once."""
 
     def __init__(self, net: RGINet, loss_params: Mapping, cfg):
-        if getattr(cfg, "compute_dtype", "float32") != "float32":
-            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: tuning runs in float32 "
-                             "(float32 master weights with a bfloat16 forward are not ported)")
+        if cfg.compute_dtype not in _DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
+                             f"got {cfg.compute_dtype!r}")
         self.net, self.cfg = net, cfg
+        # the steps' dtype: compute_dtype for float32 master weights, the
+        # master dtype for lower-precision ones
+        master = net.latent_avg.dtype
+        self.compute_dtype = _DTYPES[cfg.compute_dtype] if master == torch.float32 else master
         self.device = net.latent_avg.device
         self.criterion = ReconCriterion(
             loss_params, lpips_lambda=cfg.lpips_lambda, id_lambda=cfg.id_lambda,
@@ -153,9 +183,9 @@ class _Coach:
             device=self.device)
 
     def _working_copy(self, state: Mapping | None):
-        """A float32 copy of the net with `state` loaded, grad on exactly the
-        trainable set, and Adam over it."""
-        work = copy.deepcopy(self.net).float()
+        """A copy of the net in its own dtype (the master weights) with
+        `state` loaded, grad on exactly the trainable set, and Adam over it."""
+        work = copy.deepcopy(self.net)
         if state is not None:
             work.load_state_dict(state, strict=True)
         mask = _g_trainable_mask(
@@ -169,17 +199,33 @@ class _Coach:
         return work, torch.optim.Adam(params, lr=self.cfg.learning_rate)
 
     def _synth(self, work: RGINet, style_vectors: torch.Tensor, onehot: torch.Tensor):
+        synthesis = _Synthesis(work, self.cfg.regional_mode)
+        dt = self.compute_dtype
+
         def synth(sv, oh):
-            codes = work.cal_style_codes(sv)
-            img, _, _ = work.gen_img(None, codes, oh, regional_mode=self.cfg.regional_mode)
-            return img
+            if work.latent_avg.dtype == dt:
+                return synthesis(sv, oh)
+            # the synthesis's weights (not the encoder's) cast to the compute
+            # dtype; their gradients come back through the cast in the
+            # master dtype
+            cast = {f"net.{n}": t.to(dt)
+                    for n, t in itertools.chain(work.named_parameters(), work.named_buffers())
+                    if t.is_floating_point() and not n.startswith("encoder.")}
+            return functional_call(synthesis, cast, (sv, oh))
 
         if self.cfg.remat:
             return checkpoint(synth, style_vectors, onehot, use_reentrant=False)
         return synth(style_vectors, onehot)
 
     def _onehot(self, labels: torch.Tensor) -> torch.Tensor:
-        return F.one_hot(labels.long(), self.net.num_seg_cls).permute(0, 3, 1, 2).float()
+        """(c, Hm, Wm) ints -> (c, K, Hm, Wm) one-hot in the compute dtype."""
+        onehot = F.one_hot(labels.long(), self.net.num_seg_cls).permute(0, 3, 1, 2)
+        return onehot.to(self.compute_dtype)
+
+    def _images(self, x: torch.Tensor) -> torch.Tensor:
+        """(c, S, S, 3) uint8 or float [-1, 1] -> (c, 3, S, S) in [-1, 1] in
+        the compute dtype."""
+        return to_pm1_f32(x).permute(0, 3, 1, 2).to(self.compute_dtype)
 
     def _step(self, work, opt, inputs: tuple, rows: slice | torch.Tensor) -> dict:
         """One optimizer step on the mean gradient over `rows` of the
@@ -196,7 +242,8 @@ class _Coach:
             loss, metrics = self._chunk_loss(work, *(x[sl] for x in inputs))
             loss.backward()
             for k, v in metrics.items():
-                acc[k] = acc[k] + v.detach() if k in acc else v.detach()
+                v = v.detach().float()
+                acc[k] = acc[k] + v if k in acc else v
         if len(parts) > 1:
             grads = [p.grad for g in opt.param_groups for p in g["params"] if p.grad is not None]
             torch._foreach_div_(grads, len(parts))
@@ -227,9 +274,9 @@ class PTICoach(_Coach):
         """Loss and metrics of one chunk. frames and recolor (c, S, S, 3)
         uint8 or float [-1, 1]; labels (c, Hm, Wm) ints, one-hot here."""
         cfg = self.cfg
-        frames, recolor = _nchw(frames), _nchw(recolor)
+        frames, recolor = self._images(frames), self._images(recolor)
         onehot = self._onehot(labels)
-        recon = self._synth(work, style_vectors, onehot)
+        recon = self._synth(work, style_vectors.to(self.compute_dtype), onehot)
         loss, metrics = self.criterion(recon, frames)
         fg = onehot[:, list(_RECOLOR_FG)].amax(dim=1, keepdim=True)
         fg = resize_bilinear(fg, tuple(recon.shape[-2:]))
@@ -250,7 +297,6 @@ class PTICoach(_Coach):
         cfg = self.cfg
         frames, labels, style_vectors, recolor = self._as_device(
             frames, labels, style_vectors, recolor)
-        style_vectors = style_vectors.float()
         if cfg.erode:
             labels = eroded_label_map(labels, cfg.erode_radius)
         work, opt = self._working_copy(state)
@@ -283,9 +329,9 @@ class StitchingCoach(_Coach):
 
     def _chunk_loss(self, work, content_img, border_img, labels, style_vectors):
         cfg = self.cfg
-        content_img, border_img = _nchw(content_img), _nchw(border_img)
+        content_img, border_img = self._images(content_img), self._images(border_img)
         onehot = self._onehot(labels)
-        recon = self._synth(work, style_vectors, onehot)
+        recon = self._synth(work, style_vectors.to(self.compute_dtype), onehot)
         size = tuple(recon.shape[-2:])
         # the foreground of the swapped mask; content and border ring by
         # dilation at the mask's resolution
@@ -306,7 +352,6 @@ class StitchingCoach(_Coach):
         [-1, 1]; labels (F, Hm, Wm) ints (uint8 welcome); style_vectors
         (F, K, 1280). Returns (tuned state dict, per-step metrics)."""
         inputs = self._as_device(content_imgs, border_imgs, labels, style_vectors)
-        inputs = inputs[:3] + (inputs[3].float(),)
         work, opt = self._working_copy(state)
         n_steps = self.cfg.max_steps if steps is None else steps
         f = inputs[0].shape[0]

@@ -20,6 +20,7 @@ from e4s2024_tpu.pipelines import landmarks as jlm
 
 from e4s2024_torch.pipelines import alignment as al
 from e4s2024_torch.pipelines import landmarks as lmk
+from tests.test_torch_criterion import two_threads  # noqa: F401
 
 LEVELS = 5e-3
 

@@ -38,12 +38,14 @@ from e4s2024_torch.ops.pool import adaptive_avg_pool2d, global_avg_pool
 ARCFACE_TAPS = ((64, 56, 56), (128, 28, 28), (256, 14, 14), (512, 7, 7))
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def two_threads():
-    """Two torch threads per test: the suite runs six workers on the host's
-    cores, and these tests' many small ops, each a parallel region over
-    every core, then wait on descheduled threads (the other port test files
-    of this slice import this fixture)."""
+    """Two torch threads for a module's fixtures and tests: the suite runs
+    six workers on the host's cores, and these tests' many small ops, each
+    a parallel region over every core, then wait on descheduled threads
+    (the other port test files import this fixture; module scope, so that
+    their module-scoped fixtures, which build the nets, run on two threads
+    too)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     yield

@@ -34,6 +34,7 @@ from e4s2024_torch.models.fan import FAN, heatmaps_to_landmarks
 from e4s2024_torch.models.retinaface import (
     CFG_MNET, CFG_RE50, RetinaFace, decode_boxes, decode_landms, generate_priors)
 from e4s2024_torch.pipelines import detect
+from tests.test_torch_criterion import two_threads  # noqa: F401
 
 DET, FAN_CFG = 160, dict(num_modules=1, features=32, depth=2)
 FAN_RES = 64

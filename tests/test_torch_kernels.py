@@ -671,6 +671,48 @@ def test_generator_gradients_through_the_kernels(cuda, mode, monkeypatch):
         torch.testing.assert_close(got[n], w, rtol=1e-3, atol=1e-4 * float(w.abs().max()), msg=n)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["exact", "fast"])
+def test_bfloat16_tuning_step_through_the_kernels(cuda, mode, monkeypatch):
+    """One bfloat16 PTI step (PTIConfig(compute_dtype="bfloat16"): the
+    float32 master weights cast to bfloat16, L2 + recolor) on a 64^2
+    generator, through K1-K3 forward and their bfloat16 backwards, against
+    the same step with the plain versions on the card: the loss within 1e-3
+    relative (the forward), the float32 gradients of all the trainable
+    weights within 5e-2 of their norm (bfloat16 rounds the activations and
+    gradients at other places in the two), the backwards launched."""
+    from e4s2024_torch.models.rgi import RGINet
+    from e4s2024_torch.training.pti import PTICoach, PTIConfig
+
+    torch.manual_seed(0)
+    net = RGINet(out_size=64, remaining_layer_idx=7, encoder_num_units=(1, 1, 1, 1)).to(cuda)
+    coach = PTICoach(net, {}, PTIConfig(compute_dtype="bfloat16", lpips_lambda=0.0,
+                                        id_lambda=0.0, face_parsing_lambda=0.0,
+                                        regional_mode=mode))
+    rng = np.random.default_rng(6)
+    frames = torch.from_numpy((rng.random((2, 64, 64, 3)) * 255).astype(np.uint8)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 12, (2, 64, 64))).to(cuda)
+    sv = _randn(2, 12, 1280, device=cuda, seed=7) * 0.1
+
+    def step():
+        work, _ = coach._working_copy(None)
+        loss, _ = coach._chunk_loss(work, frames, labels, sv, frames)
+        loss.backward()
+        grads = [p.grad for p in work.parameters() if p.grad is not None]
+        assert grads and all(g.dtype == torch.float32 for g in grads)
+        return float(loss), torch.cat([g.flatten() for g in grads])
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    loss, got = step()
+    counts = kernels.launch_counts()
+    with kernels.plain_versions_on_card():
+        want_loss, want = step()
+    for name in ("fused_leaky_relu", "upfirdn2d", "regional_scale"):
+        assert counts[name] > 0 and counts[name + "_backward"] > 0, counts
+    assert loss == pytest.approx(want_loss, rel=1e-3)
+    assert float((got - want).norm()) <= 5e-2 * float(want.norm())
+
+
 def _penalty_grads(fn, params, x):
     """R1's pattern: ||d fn(x).sum() / dx||^2 and its gradient in `params`."""
     xr = x.detach().requires_grad_(True)

@@ -29,6 +29,7 @@ from e4s2024_torch.models.bisenet import BiSeNet, bicubic_downsample
 from e4s2024_torch.models.encoders import FSEncoderPSP
 from e4s2024_torch.models.rgi import RGINet
 from e4s2024_torch.models.stylegan2 import EqualConv2d, Generator
+from tests.test_torch_criterion import two_threads  # noqa: F401
 
 
 def random_params(tree, seed: int):

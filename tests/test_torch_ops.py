@@ -23,6 +23,7 @@ from e4s2024_tpu.ops.pallas import blur3x3_tpu, fused_leaky_relu_tpu, modulate_d
 
 from e4s2024_torch import kernels
 from e4s2024_torch.ops import blend, fused_act, modconv, modulate, morphology, pool, resize, upfirdn
+from tests.test_torch_criterion import two_threads  # noqa: F401
 
 # float32 on both sides; differences come from summation order only
 ATOL = 1e-5

@@ -45,6 +45,7 @@ from e4s2024_torch.pipelines.swap import FaceSwapper, SwapConfig
 from tests.test_torch_detect import FAN_RES, DET, _frames, small_stacks
 from tests.test_torch_models import random_params
 from tests.test_torch_swinir import TINY, swin_params
+from tests.test_torch_criterion import two_threads  # noqa: F401
 
 SIZE, REMAINING, LEVELS, UNITS = 128, 9, 4, (1, 1, 1, 1)
 

@@ -26,6 +26,7 @@ from e4s2024_torch.convert import bisenet_state_dict_from_jax, rgi_state_dict_fr
 from e4s2024_torch.pipelines.mask_merge import swap_comp_style_vector, swap_head_mask
 from e4s2024_torch.pipelines.swap import FaceSwapper, SwapConfig
 from tests.test_torch_models import random_params
+from tests.test_torch_criterion import two_threads  # noqa: F401
 
 SIZE, REMAINING, LEVELS, UNITS = 128, 9, 4, (1, 1, 1, 1)
 MODES = ("exact", "fast")

@@ -24,6 +24,7 @@ from e4s2024_torch.ops.swin_block import (
     widths_ok)
 from tests.test_torch_kernels import _block_weights as _random_block_weights
 from tests.test_torch_swinir import _port_block_weights, swin_params
+from tests.test_torch_criterion import two_threads  # noqa: F401
 
 SHAPES = [(12, 2, 24), (180, 6, 360), (15, 3, 30)]
 DTYPES = [torch.float32, torch.bfloat16]

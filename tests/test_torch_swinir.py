@@ -41,6 +41,7 @@ from e4s2024_torch.models.swinir import SwinIR, SwinIREnhancer, SwinIRUpscaler, 
 from e4s2024_torch.ops.swin_block import block_weights, fused_swin_block
 from e4s2024_torch.ops.window_attention import fused_window_attention, swin_attention_nhwc
 from tests.test_torch_models import random_params, torch_to_numpy
+from tests.test_torch_criterion import two_threads  # noqa: F401
 
 TINY = dict(embed_dim=24, depths=(2, 2), heads=(2, 2), num_feat=16)
 ATT_TOL = dict(atol=2e-5, rtol=2e-5)

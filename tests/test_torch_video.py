@@ -1,9 +1,11 @@
 """The port's video-swap stages and video_io (e4s2024_torch.pipelines.video,
 e4s2024_torch.video_io) against the JAX package's, on the CPU: the cv2
 round trip, the padded chunking, batched and per-frame alignment with its
-confidence floor, the enhancer and recolorer hooks, what the pipeline
-refuses, and a clip with the tunes off against JAX's pipeline. Whole clips are held in tests/test_torch_clip.py, whose
-configuration and helpers this file shares.
+confidence floor, the enhancer and recolorer hooks, and a bfloat16
+swapper's tuned clip against JAX's pipeline. The clip with the tunes off is
+held in tests/test_torch_untuned_clip.py, whole clips in
+tests/test_torch_clip.py, whose configuration and helpers this file
+shares.
 """
 
 import os
@@ -12,7 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from e4s2024_tpu.pipelines.swap import FaceSwapper as JFaceSwapper
+from e4s2024_tpu.pipelines.swap import SwapConfig as JSwapConfig
 from e4s2024_tpu.pipelines.video import FaceSwapVideoPipeline as JFaceSwapVideoPipeline
+from e4s2024_tpu.pipelines.video import VideoSwapConfig as JVideoSwapConfig
+from e4s2024_tpu.training.pti import PTIConfig as JPTIConfig
+from e4s2024_tpu.training.pti import StitchingConfig as JStitchingConfig
 
 from e4s2024_torch import video_io
 from e4s2024_torch.convert import bisenet_state_dict_from_jax, rgi_state_dict_from_jax
@@ -20,7 +29,7 @@ from e4s2024_torch.pipelines import video
 from e4s2024_torch.pipelines.swap import FaceSwapper, SwapConfig
 from e4s2024_torch.pipelines.video import FaceSwapVideoPipeline
 from tests.test_torch_clip import (
-    UNITS, _clip, _diff, _kw, _vcfg, fake_landmarks, jax_swapper, make_weights, port_swapper)
+    UNITS, _clip, _kw, _vcfg, fake_landmarks, jax_swapper, make_weights, port_swapper)
 from tests.test_torch_criterion import two_threads  # noqa: F401
 
 
@@ -156,22 +165,49 @@ def test_recolorer_hook_gives_the_pti_targets(weights):
 
 
 def test_video_pipeline_refuses_bfloat16(weights):
-    _, rgi_vars, bise = weights
+    """Named for the refusal it replaced: the pipeline now takes a bfloat16
+    swapper as JAX's does, its bfloat16 weights tuned in bfloat16 and
+    written back. A 2-frame clip with one PTI step (fast mode) against
+    JAX's pipeline over a bfloat16 swapper: the trained elements that both
+    packages moved (measured: 5.28M of the port's 5.38M and JAX's 5.36M)
+    moved the same way for at least 90% (measured 95.3%; a wrong or missing
+    tune gives about half or none), and the frames within a mean of 6 levels
+    and 99% within 40 (measured 3.4 and 27; the packages' bfloat16
+    syntheses round at other places, by 2.6 and 25 untuned, and a random
+    net amplifies it). Stitching is left out: its first step on a clip
+    whose border ring is empty follows bfloat16 rounding noise."""
+    jrgi, rgi_vars, bise = weights
+    source, frames = _clip(7, n=2)
+    bf16 = dict(compute_dtype="bfloat16", **_kw())
     sw = FaceSwapper(rgi_state_dict_from_jax(rgi_vars), bisenet_state_dict_from_jax(bise),
-                     SwapConfig(compute_dtype="bfloat16", **_kw()), device="cpu",
+                     SwapConfig(**bf16), landmark_fn=fake_landmarks, device="cpu",
                      encoder_num_units=UNITS)
-    with pytest.raises(ValueError, match="float32"):
-        FaceSwapVideoPipeline(sw, _vcfg("torch"))
+    init = {k: v.float() for k, v in sw.rgi.state_dict().items() if v.is_floating_point()}
+    pipe = FaceSwapVideoPipeline(sw, _vcfg("torch", 1, 0, tune_mode="fast"))
+    outs = pipe(source, frames)
+    assert set(pipe.histories) == {"pti"}
+    got = sw.rgi.state_dict()
+    assert got["G.conv1.conv.weight"].dtype == torch.bfloat16
 
-
-def test_untuned_clip_matches_jax(weights):
-    """The stages around the tunes (align, parse, invert, merge, synthesis,
-    composite, paste-back) with PTI and stitching off, against JAX's
-    pipeline: every frame within 1 level, mean under 1e-3 level (measured
-    1.8e-4, CPU)."""
-    source, frames = _clip(7)
-    outs = FaceSwapVideoPipeline(port_swapper(weights), _vcfg("torch", 0, 0))(source, frames)
-    jouts = JFaceSwapVideoPipeline(jax_swapper(weights), _vcfg("jax", 0, 0))(source, frames)
-    for got, want in zip(outs, jouts):
-        mx, mean, _ = _diff(got, want)
-        assert mx <= 1 and mean <= 1e-3, (mx, mean)
+    jsw = JFaceSwapper(rgi_vars, bise, JSwapConfig(**bf16), landmark_fn=fake_landmarks)
+    jsw.rgi = jrgi
+    jcfg = JVideoSwapConfig(
+        swap=JSwapConfig(**bf16), pti=JPTIConfig(max_pti_steps=1, scan_steps=1,
+                                                 regional_mode="fast"),
+        stitching=JStitchingConfig(max_steps=0), frames_per_batch=2)
+    jouts = JFaceSwapVideoPipeline(jsw, jcfg)(source, frames)
+    tuned = rgi_state_dict_from_jax(jax.tree_util.tree_map(
+        lambda x: np.asarray(x, np.float32), jsw.rgi_variables))
+    moved = {"port": 0, "jax": 0, "both": 0, "agree": 0}
+    for k, v in init.items():
+        a, b = got[k].float() - v, tuned[k] - v
+        both = (a != 0) & (b != 0)
+        moved["port"] += int((a != 0).sum())
+        moved["jax"] += int((b != 0).sum())
+        moved["both"] += int(both.sum())
+        moved["agree"] += int((both & (a.sign() == b.sign())).sum())
+    assert moved["both"] > 0.9 * max(moved["port"], moved["jax"]), moved
+    assert moved["agree"] >= 0.9 * moved["both"], moved
+    for got_frame, want in zip(outs, jouts):
+        d = np.abs(got_frame.astype(np.int16) - want.astype(np.int16))
+        assert d.mean() <= 6 and np.quantile(d, 0.99) <= 40, (d.mean(), np.quantile(d, 0.99))
