@@ -94,8 +94,8 @@ Phases, each of which must pass or the script exits non-zero:
    the plain versions from the same weights (step 0 within 1e-4; later
    steps within 1e-3, R1 within 5e-2), the frozen tensors unchanged,
    a G step's peak memory with remat off and on, the EMA against its
-   formula, and one G step in DistributedDataParallel at world size 1
-   (NCCL) against the same step without it. Phase 2 also holds K1's and
+   formula, and one G step over a process group at world size 1 (NCCL)
+   against the same step without it. Phase 2 also holds K1's and
    K2's double backwards (R1's) at the Discriminator's largest shapes, and
    R1 with its parameter gradient of a 256^2 Discriminator through the
    kernels, against the plain versions;
@@ -116,7 +116,20 @@ Phases, each of which must pass or the script exits non-zero:
    versions' (TUNE_BF16_PTI_LIMITS), and a bfloat16 stitching run with a
    border ring, from the clip's weights, against its plain-version run
    (TUNE_BF16_RING_LIMITS). Phase 2 also holds K1-K3's bfloat16
-   backwards at PTI's shapes.
+   backwards at PTI's shapes;
+11. group: the multi-rank paths over a process group at world size 1
+   (NCCL; the machine has one card, so world size 2 is held only by the
+   CPU tests over gloo), each grouped run against the same run without
+   the group, with its ms, peak memory and K1-K3 launches: (a) one D+R1
+   step of phase 9's TrainConfig (1024^2, B=2), whose Discriminator
+   gathers its minibatch-stddev features over the group (metrics within
+   TRAIN_STEP0_REL, R1 within TRAIN_R1_LATER_REL); (b) 2 PTI steps and 2
+   stitching steps over phase 6's 8-frame clip (the stitching on labels
+   with a background band, as phase 6's ring run), each loss within 1e-3;
+   the runs in turns (ungrouped, grouped, grouped, ungrouped);
+   (c) `swap_batch` at B=4 of phase 7's zoo pipeline after
+   `shard_inference(group)` (uint8, phase 7's 0.5 levels mean, the same
+   launches as one call).
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Float32 convolutions and matrix
@@ -282,6 +295,10 @@ BF16_BACKWARD_CASES = (
     ("fused_leaky_relu_backward", "StyledConv at 1024^2, PTI chunk B=2, bfloat16"),
     ("upfirdn2d_backward", "blur after transposed conv, 1024^2, PTI chunk B=2, bfloat16"),
     ("regional_scale_backward", "fast-mode StyledConv at 256^2, PTI chunk B=2, bfloat16"))
+
+# phase 11: the tunes' steps over the group and their bound against the
+# ungrouped run (phase 6's), and the phase's time budget in seconds
+GROUP_TUNE_STEPS, GROUP_TUNE_REL, GROUP_PHASE_S = 2, 1e-3, 60.0
 
 # kernels whose bfloat16 instances must hold tensor-core instructions
 TENSOR_CORE_KERNELS = ("swin_block_kernel", "window_attention_kernel")
@@ -2251,7 +2268,7 @@ def phase_train(torch, rgi_sd):
         del rcoach, rstate, ema0
         torch.cuda.empty_cache()
 
-    # one G step inside DDP at world size 1 (NCCL) against the same step
+    # one G step over a process group at world size 1 (NCCL) against the same step
     # outside it, from the same weights, and a second step outside it for
     # the two runs' own difference: cuDNN's deterministic algorithms, but the
     # encoder's bilinear-resize backward still adds with atomics, and Adam's
@@ -2303,7 +2320,7 @@ def phase_train(torch, rgi_sd):
                ddp_limits={"metrics_rel": TRAIN_DDP_REL, "params_max_abs_in_lr": 2.0,
                            "params_norm_rel_to_move": 1e-2})
     if ddp_rel > TRAIN_DDP_REL or ddp_lr > 2.0 or ddp_norm > 1e-2:
-        problems.append(f"DDP at world size 1 differs: metrics {ddp_rel}, params {ddp_lr} lr, "
+        problems.append(f"the group at world size 1 differs: metrics {ddp_rel}, params {ddp_lr} lr, "
                         f"{ddp_norm} of the move")
     del results, p0, p1, p_again, init, nets, batches, setup
     torch.cuda.empty_cache()
@@ -2577,6 +2594,238 @@ def phase_edit(torch, rgi_sd, bise_sd, video):
     return {"configs": configs, "apps": apps, "tune": tune, "launches": launches}
 
 
+# ------------------------------------------------------------ phase 11
+
+
+def _twin(torch, kernels, run, group, setup=None, made=None):
+    """run(g, setup(g)) for g None and g `group` in turns (ungrouped,
+    grouped, grouped, ungrouped; each side's two runs share one setup),
+    each timed (host clock, synchronised; `setup`, untimed, builds what the
+    runs need; `made`, if given, serves the ungrouped runs instead) with its
+    peak memory and its launches (the counts set to 0 just before each run
+    and read just after). Returns {"ungrouped": [...], "grouped": [...]},
+    each run {"out", "ms", "peak_mem_gib", "launches"}, in the order run."""
+    objs = {"ungrouped": made if made is not None else setup(None) if setup else None,
+            "grouped": setup(group) if setup else None}
+    runs = {"ungrouped": [], "grouped": []}
+    for name in ("ungrouped", "grouped", "grouped", "ungrouped"):
+        g = group if name == "grouped" else None
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run(g, objs[name])
+        torch.cuda.synchronize()
+        runs[name].append({"out": out, "ms": (time.perf_counter() - t0) * 1e3,
+                           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                           "launches": kernels.launch_counts()})
+    del objs
+    return runs
+
+
+def _twin_record(runs, **extra):
+    rec = {}
+    for name, rs in runs.items():
+        rec[name] = {"ms": [r["ms"] for r in rs], "peak_mem_gib": [r["peak_mem_gib"] for r in rs],
+                     "launches": {k: v for k, v in rs[0]["launches"].items() if v}}
+    rec.update(extra)
+    return rec
+
+
+def _forward_launches(launches):
+    return all(launches[k] > 0 for k in ("fused_leaky_relu", "upfirdn2d", "regional_scale"))
+
+
+def _group_train(torch, kernels, rgi_sd, group):
+    """One D+R1 step of phase 9's TrainConfig from phase 9's weights and
+    first batch, with and without the group. Returns (record, launches,
+    problems)."""
+    from e4s2024_torch.training.coach import Coach
+
+    cfg, nets, d_sd, batches = _train_setup(torch)
+    img, onehot = batches[0]
+
+    def setup(g):
+        coach = Coach(cfg, nets, process_group=g, device="cuda")
+        return coach, _train_start(torch, coach, rgi_sd, d_sd)
+
+    def step(g, made):
+        coach, state = made
+        state, metrics = coach.d_step(state, img, onehot, with_r1=True)
+        return coach._host(metrics)
+
+    # a warm-up step; the ungrouped run then restarts from the same weights
+    # (the D step's metrics come before its update, so the optimizer state
+    # the warm-up moved does not enter them)
+    coach, state = setup(None)
+    step(None, (coach, state))
+    runs = _twin(torch, kernels, step, group, setup,
+                 made=(coach, _train_start(torch, coach, rgi_sd, d_sd)))
+    # the first run of each side from the same weights; each side's second
+    # run steps on from its first (the grouped one without the first step's
+    # broadcast of the weights)
+    m0, m1 = runs["ungrouped"][0]["out"], runs["grouped"][0]["out"]
+    rel = {k: abs(m1[k] - m0[k]) / max(abs(m0[k]), 1e-12) for k in m0}
+    rec = _twin_record(runs, metrics=m1, ungrouped_metrics=m0, vs_ungrouped_rel=rel,
+                       limits={"metrics": TRAIN_STEP0_REL, "r1_loss": TRAIN_R1_LATER_REL},
+                       config={"out_size": cfg.out_size, "batch_size": img.shape[0],
+                               "regional_mode": cfg.regional_mode})
+    problems = []
+    if set(m0) != set(m1) or "r1_loss" not in m1 or not all(np.isfinite(v) for v in m1.values()):
+        problems.append(f"D+R1 metrics {m1} against {m0}")
+    for k, r in rel.items():
+        if r > (TRAIN_R1_LATER_REL if k == "r1_loss" else TRAIN_STEP0_REL):
+            problems.append(f"D+R1 {k} differs from the ungrouped step's by {r}")
+    launches = runs["grouped"][0]["launches"]
+    if not _forward_launches(launches) or any(launches[k] == 0 for k in DOUBLE_BACKWARD):
+        problems.append(f"D+R1 launches {launches}")
+    del nets, batches
+    torch.cuda.empty_cache()
+    return rec, launches, problems
+
+
+def _group_tune(torch, kernels, rgi_sd, bise_sd, group):
+    """2 PTI steps and 2 stitching steps over phase 6's clip, with and without
+    the group. Returns (record, launches, problems, the swapper)."""
+    from e4s2024_torch.pipelines.video import FaceSwapVideoPipeline, VideoSwapConfig
+    from e4s2024_torch.training.pti import PTICoach, PTIConfig, StitchingCoach, StitchingConfig
+
+    swapper, nets, _, frames = _tune_setup(torch, rgi_sd, bise_sd)
+    pipe = FaceSwapVideoPipeline(swapper, VideoSwapConfig(), loss_params=nets)
+    u8, labels, sv = _clip_inputs(torch, pipe, frames)
+    # stitching on labels with a background band, as phase 6's ring run
+    m = labels.shape[-1] // 8
+    inner = torch.zeros_like(labels, dtype=torch.bool)
+    inner[:, m:-m, m:-m] = True
+    ring = torch.where(inner, labels, torch.zeros_like(labels))
+    with torch.no_grad():
+        content = pipe._gen_raw(sv, ring)
+    labels, ring = labels.to(torch.uint8), ring.to(torch.uint8)
+
+    def pti(g, _):
+        return PTICoach(swapper.rgi, nets, PTIConfig(), process_group=g).tune(
+            None, u8, labels, sv, u8, steps=GROUP_TUNE_STEPS)[1]
+
+    def stitching(g, _):
+        return StitchingCoach(swapper.rgi, nets, StitchingConfig(), process_group=g).tune(
+            None, content, u8, ring, sv, steps=GROUP_TUNE_STEPS)[1]
+
+    rec, problems, launches = {"frames": len(frames), "steps": GROUP_TUNE_STEPS}, [], {}
+    for name, fn in (("pti", pti), ("stitching", stitching)):
+        runs = _twin(torch, kernels, fn, group)
+        h0 = runs["ungrouped"][0]["out"]
+        hists = [r["out"] for r in runs["grouped"] + runs["ungrouped"][1:]]
+        rel = [max(abs(a["loss"] - b["loss"]) / max(abs(b["loss"]), 1e-12)
+                   for a, b in zip(h, h0)) for h in hists]
+        rec[name] = _twin_record(runs, losses=[[m["loss"] for m in h] for h in hists],
+                                 ungrouped_losses=[m["loss"] for m in h0],
+                                 vs_ungrouped_max_rel=rel, limit=GROUP_TUNE_REL)
+        if any(len(h) != GROUP_TUNE_STEPS for h in hists) or max(rel) > GROUP_TUNE_REL \
+                or not all(np.isfinite(m["loss"]) for h in hists for m in h):
+            problems.append(f"{name} over the group: losses {rec[name]['losses']} against "
+                            f"{rec[name]['ungrouped_losses']}")
+        counts = runs["grouped"][0]["launches"]
+        if not _forward_launches(counts) or any(counts[k] == 0 for k in BACKWARD):
+            problems.append(f"{name} over the group launched {counts}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    del nets, pipe, u8, labels, sv, content, ring
+    torch.cuda.empty_cache()
+    return rec, launches, problems, swapper
+
+
+def _group_serve(torch, kernels, swapper, group):
+    """`swap_batch` at B=ZOO_BATCH of phase 7's zoo pipeline, then the same
+    batch after `shard_inference(group)`. Returns (record, launches,
+    problems)."""
+    from e4s2024_torch.pipelines.full_swap import FullFaceSwapPipeline, FullSwapConfig
+    from e4s2024_torch.profile_swap import zoo_components
+
+    pipe = FullFaceSwapPipeline(swapper, zoo_components("cuda"),
+                                FullSwapConfig(face_inpainting=True))
+    srcs, tgts = _zoo_inputs(ZOO_BATCH)
+    pipe.swap_batch(srcs, tgts)  # warm-up
+
+    def serve(g, _):
+        pipe.process_group = None
+        if g is not None:
+            pipe.shard_inference(g)
+        return pipe.swap_batch(srcs, tgts)
+
+    runs = _twin(torch, kernels, serve, group)
+    pipe.process_group = None
+    a, b = runs["grouped"][0]["out"], runs["ungrouped"][0]["out"]
+    diff = (a.int() - b.int()).abs()
+    launches = runs["grouped"][0]["launches"]
+    rec = _twin_record(runs, batch=ZOO_BATCH, vs_ungrouped_max_abs=int(diff.max()),
+                       vs_ungrouped_mean_abs=float(diff.float().mean()),
+                       limit_mean_abs=0.5)
+    problems = []
+    if a.shape != (ZOO_BATCH, 1024, 1024, 3) or a.dtype != torch.uint8 \
+            or rec["vs_ungrouped_mean_abs"] > 0.5:
+        problems.append(f"sharded swap_batch {tuple(a.shape)} {a.dtype}, "
+                        f"{rec['vs_ungrouped_mean_abs']} levels from the ungrouped batch")
+    if {k: launches[k] for k in ZOO_PER_CALL} != ZOO_PER_CALL:
+        problems.append(f"sharded swap_batch launched {launches}, expected {ZOO_PER_CALL}")
+    del pipe
+    torch.cuda.empty_cache()
+    return rec, launches, problems
+
+
+def phase_group(torch, rgi_sd, bise_sd, card: str):
+    """The multi-rank paths at world size 1 over NCCL (see the module
+    docstring, phase 11). Returns the record, the grouped runs' launches
+    under "launches"."""
+    import socket
+
+    import torch.distributed as dist
+
+    from e4s2024_torch import kernels
+    from e4s2024_torch.parallel.ddp import make_process_group
+
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    group = make_process_group(1, 0, device="cuda", init_method=f"tcp://localhost:{port}")
+    # NCCL makes its communicator at the first collective: once, here, timed
+    # apart from the runs
+    t0 = time.perf_counter()
+    dist.all_reduce(torch.ones(1, device="cuda"), group=group)
+    torch.cuda.synchronize()
+    launches, problems, rec = {}, [], {"card": card, "world_size": dist.get_world_size(group),
+                                       "backend": dist.get_backend(group),
+                                       "first_collective_ms": (time.perf_counter() - t0) * 1e3}
+    try:
+        r, counts, probs = _group_train(torch, kernels, rgi_sd, group)
+        rec["d_r1_step"], problems = r, problems + probs
+        log(f"[group] d_r1_step ({card}): {json.dumps(r)}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        r, counts, probs, swapper = _group_tune(torch, kernels, rgi_sd, bise_sd, group)
+        rec["tune"], problems = r, problems + probs
+        log(f"[group] tune ({card}): {json.dumps(r)}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        r, counts, probs = _group_serve(torch, kernels, swapper, group)
+        rec["serve"], problems = r, problems + probs
+        log(f"[group] serve ({card}): {json.dumps(r)}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        del swapper
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["launches"] = launches
+    log(f"[group] phase 11: {rec['phase_s']:.1f} s (budget {GROUP_PHASE_S:.0f} s), "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    if problems:
+        raise AssertionError(f"group: {problems}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2597,7 +2846,7 @@ def main() -> int:
         f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
 
     t0 = time.perf_counter()
-    phase_build(torch)
+    card = phase_build(torch)
     records = phase_kernels(torch)
     rgi_sd, bise_sd = _random_state_dicts(torch)
     main_path = phase_swap(torch, rgi_sd, bise_sd, "float32")
@@ -2611,23 +2860,28 @@ def main() -> int:
     reenact = phase_reenact(torch, rgi_sd, bise_sd)
     train = phase_train(torch, rgi_sd)
     edit = phase_edit(torch, rgi_sd, bise_sd, video)
+    group = phase_group(torch, rgi_sd, bise_sd, card)
 
     # launches: K1-K3 on the aligned swaps of phase 3, the raw-frame calls of
     # phase 5, the video clip of phase 6, the zoo swaps of phase 7, the
     # reenacted swaps and the LIA drive of phase 8, the trainer's fit of
-    # phase 9 and the editor, apps and bfloat16-tuned clip of phase 10; the
-    # backwards on the clips and the fit, the double backwards (R1's) on the
-    # fit alone; K5 on the enhanced swaps of phases 4 and 5, K4 and K6 on
+    # phase 9, the editor, apps and bfloat16-tuned clip of phase 10 and the
+    # grouped runs of phase 11; the backwards on the clips, the fit and the
+    # grouped D+R1 step and tunes, the double backwards (R1's) on the fit
+    # and the grouped D+R1 step; K5 on the enhanced swaps of phases 4 and 5, K4 and K6 on
     # the upscaler runs of their routes
     launches = {name: sum(main_path[m]["launches"][name] for m in main_path)
                 + sum(r["launches"].get(name, 0) for r in raw.values())
                 + video["launches"][name] + zoo["launches"][name]
                 + reenact["launches"][name] + reenact["lia_launches"][name]
                 + train["launches"][name] + edit["launches"].get(name, 0)
+                + group["launches"].get(name, 0)
                 for name in PER_CALL["exact"]}
     launches.update({name: video["launches"][name] + train["launches"][name]
-                     + edit["launches"].get(name, 0) for name in BACKWARD})
-    launches.update({name: train["launches"][name] for name in DOUBLE_BACKWARD})
+                     + edit["launches"].get(name, 0) + group["launches"].get(name, 0)
+                     for name in BACKWARD})
+    launches.update({name: train["launches"][name] + group["launches"].get(name, 0)
+                     for name in DOUBLE_BACKWARD})
     launches["fused_swin_block"] = (enhance["launches"]["fused_swin_block"]
                                     + raw["swap_raw exact"]["launches"]["fused_swin_block"])
     for route in ("nhwc", "windowed"):

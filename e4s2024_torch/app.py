@@ -117,6 +117,8 @@ def build_gradio_app(swapper, video_pipeline=None, full_pipeline=None):
         video_pipeline.cfg.pti.learning_rate = float(pti_lr)
         video_pipeline.cfg.pti.recolor_lambda = float(recolor_lambda)
         outs = video_pipeline(np.asarray(source), frames)
+        if not video_pipeline.is_output_rank:
+            return None
         out_path = os.path.join(tempfile.mkdtemp(), "swapped.mp4")
         return write_video(outs, out_path, fps, audio_from=video)
 

@@ -513,18 +513,125 @@ def discriminator_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor
 
 
 def coach_state_from_jax(params: Mapping, buffers: Mapping, ema_params: Mapping,
-                         d_params: Mapping, step: int = 0) -> dict:
-    """A JAX CoachState's weights (numpy or array-like leaves) as the tree
-    that `training.coach.Coach.load_tree` loads: `params` and `ema_params`
-    as RGINet parameter names, `buffers` {"latent_avg"}, `d_params` as the
-    Discriminator's, and `step`. No optimizer state: the port's starts at
-    zero, as a fresh JAX one does."""
-    rgi = rgi_state_dict_from_jax({"params": params, "buffers": buffers})
-    ema = rgi_state_dict_from_jax({"params": ema_params, "buffers": buffers})
-    latent_avg = rgi.pop("latent_avg")
-    ema.pop("latent_avg")
-    return {"step": int(step), "params": rgi, "buffers": {"latent_avg": latent_avg},
-            "ema_params": ema, "d_params": discriminator_state_dict_from_jax(d_params)}
+                         d_params: Mapping, step: int = 0, g_opt=None, d_opt=None) -> dict:
+    """A JAX CoachState (numpy or array-like leaves) as the tree that
+    `training.coach.Coach.load_tree` loads: `params` and `ema_params` as
+    RGINet parameter names, `buffers` {"latent_avg"}, `d_params` as the
+    Discriminator's, and `step`. `g_opt` and `d_opt`, the JAX optimizer
+    states as orbax restores them without a template (nested dicts and
+    lists), become the port's `g_opt` / `d_opt` (`optimizer_state_from_jax`);
+    without them the tree has none and the port's states stay as they are
+    (zero for a fresh state, as a fresh JAX one)."""
+    def rgi(tree):
+        sd = rgi_state_dict_from_jax({"params": tree, "buffers": buffers})
+        sd.pop("latent_avg")
+        return sd
+
+    out = {"step": int(np.asarray(step)), "params": rgi(params),
+           "buffers": {"latent_avg": _t(buffers["latent_avg"])}, "ema_params": rgi(ema_params),
+           "d_params": discriminator_state_dict_from_jax(d_params)}
+    if g_opt is not None:
+        out["g_opt"] = optimizer_state_from_jax(g_opt, params, rgi)
+    if d_opt is not None:
+        out["d_opt"] = optimizer_state_from_jax(d_opt, d_params,
+                                                discriminator_state_dict_from_jax)
+    return out
+
+
+def _map_leaves(tree, like, fn):
+    """`like`'s nested-dict structure with fn(tree's leaf, like's leaf) at
+    each leaf; a missing or None branch of `tree` passes None."""
+    if isinstance(like, Mapping):
+        sub = tree if isinstance(tree, Mapping) else {}
+        return {k: _map_leaves(sub.get(k), v, fn) for k, v in like.items()}
+    return fn(tree, like)
+
+
+def _moments_from_jax(tree, like, to_state_dict, names: list[str]) -> dict:
+    """A tree of moments shaped as the parameters (None where a parameter
+    is frozen) through the parameters' converter, kept for `names`."""
+    full = _map_leaves(tree, like, lambda t, p: np.zeros(np.shape(p), np.float32)
+                       if t is None else np.asarray(t))
+    sd = to_state_dict(full)
+    return {k: sd[k] for k in names}
+
+
+def _adam_from_jax(chain, like, to_state_dict, names: list[str]) -> list:
+    """optax's adam / radam chain [ScaleByAdamState(count, mu, nu),
+    ScaleByScheduleState(count)] -> the port's chain state."""
+    if not (isinstance(chain, (list, tuple)) and len(chain) == 2
+            and isinstance(chain[0], Mapping) and {"count", "mu", "nu"} <= set(chain[0])
+            and (chain[1] is None
+                 or isinstance(chain[1], Mapping) and set(chain[1]) == {"count"})):
+        raise ValueError("not an optax adam or radam state (a chain of scale_by_adam and "
+                         f"scale_by_learning_rate): {_describe(chain)}")
+    adam, sched = chain
+    count = int(np.asarray(adam["count"]))
+    # a constant rate keeps no count in optax (an empty state); the port's
+    # counts every update, as a schedule's does
+    return [{"count": count,
+             "mu": _moments_from_jax(adam["mu"], like, to_state_dict, names),
+             "nu": _moments_from_jax(adam["nu"], like, to_state_dict, names)},
+            {"count": count if sched is None else int(np.asarray(sched["count"]))}]
+
+
+def _describe(tree, depth: int = 2) -> str:
+    if isinstance(tree, Mapping):
+        if depth == 0:
+            return "{...}"
+        return "{" + ", ".join(f"{k!r}: {_describe(v, depth - 1)}" for k, v in tree.items()) + "}"
+    if isinstance(tree, (list, tuple)):
+        return "[" + ", ".join(_describe(v, depth - 1) for v in tree) + "]"
+    return type(tree).__name__
+
+
+def optimizer_state_from_jax(state, params: Mapping, to_state_dict) -> object:
+    """A JAX optimizer state, as orbax restores it without a template, in
+    the layout of the port's `training/optim.py` state over the same
+    parameters.
+
+    Understood: optax's adam (and radam) chain; the JAX package's Ranger
+    (`lookahead` over radam: {"inner", "slow", "gstep"}, the slow weights
+    converted as the parameters are); either of them inside optax's
+    `multi_transform({True: tx, False: set_to_zero()}, mask)`, whose frozen
+    leaves are None, which becomes the port's `masked` state over the
+    trainable names. `params` is the JAX parameter tree and
+    `to_state_dict` its converter to the port's names. The moments go
+    through the same converter as their parameter: it may only move
+    elements (transposes, reshapes), which is checked on a tree of ones,
+    since a scaled parameter would need its moments scaled too. Any other
+    state raises ValueError naming what it found: no part of a state is
+    dropped."""
+    names = None
+    if isinstance(state, Mapping) and "inner_states" in state:
+        inner = state["inner_states"]
+        frozen = inner.get("False", inner.get(False))
+        live = inner.get("True", inner.get(True))
+        if set(inner) - {"True", "False", True, False} or live is None \
+                or (frozen is not None and frozen.get("inner_state") is not None):
+            raise ValueError("a multi_transform state other than {True: tx, False: "
+                             f"set_to_zero()}}: {_describe(state)}")
+        state = live["inner_state"]
+        # the trainable names: the leaves the live moments hold
+        first = state["inner"][0] if isinstance(state, Mapping) and "inner" in state \
+            else state[0] if isinstance(state, (list, tuple)) and state else {}
+        mask = _map_leaves(first.get("mu") if isinstance(first, Mapping) else None, params,
+                           lambda t, p: np.zeros(np.shape(p), np.float32) if t is None
+                           else np.ones(np.shape(p), np.float32))
+        sd = to_state_dict(mask)
+        names = [k for k, v in sd.items() if bool(v.any())]
+    ones = to_state_dict(_map_leaves(None, params, lambda t, p: np.ones(np.shape(p), np.float32)))
+    scaled = [k for k, v in ones.items() if not bool((v == 1).all())]
+    if scaled:
+        raise ValueError(f"the converter scales {scaled[:4]}: their moments would need "
+                         "scaling too")
+    if names is None:
+        names = list(ones)
+    if isinstance(state, Mapping) and {"inner", "slow", "gstep"} == set(state):
+        return {"inner": _adam_from_jax(state["inner"], params, to_state_dict, names),
+                "gstep": int(np.asarray(state["gstep"])),
+                "slow": _moments_from_jax(state["slow"], params, to_state_dict, names)}
+    return _adam_from_jax(state, params, to_state_dict, names)
 
 
 def unwrap_envelope(state_dict: Mapping, *names: str) -> dict:

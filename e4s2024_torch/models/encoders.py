@@ -19,8 +19,33 @@ from torch import nn
 from e4s2024_torch.ops.resize import resize_nearest
 
 
+class _InstanceNorm(torch.autograd.Function):
+    """`F.instance_norm`'s forward with the backward of its formula,
+    dx = (g - mean(g) - y mean(g y)) / sqrt(var + eps) over H, W: torch
+    2.13's own backward on the CPU is wrong for a batch of one (it leaves
+    the formula by the gradient's own size), which a trainer rank with one
+    row hits."""
+
+    @staticmethod
+    def forward(ctx, x, eps):
+        y = F.instance_norm(x, eps=eps)
+        ctx.save_for_backward(y, torch.rsqrt(x.var(dim=(2, 3), unbiased=False, keepdim=True)
+                                             + eps))
+        return y
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        y, inv_std = ctx.saved_tensors
+        g_mean = g.mean(dim=(2, 3), keepdim=True)
+        gy_mean = (g * y).mean(dim=(2, 3), keepdim=True)
+        return inv_std * (g - g_mean - y * gy_mean), None
+
+
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm2d(affine=False): each (sample, channel) over H, W."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _InstanceNorm.apply(x, eps)
     return F.instance_norm(x, eps=eps)
 
 

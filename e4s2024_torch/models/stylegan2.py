@@ -336,7 +336,15 @@ class Discriminator(nn.Module):
     of consecutive samples (B must be a multiple of the group), takes each
     feature's population stddev across the groups and appends its mean over
     C, H and W as one channel. The flatten before `final_linear` is NCHW,
-    the reference's own."""
+    the reference's own.
+
+    Under a process group (`process_group`, which the Coach sets) B is the
+    global batch, as in the JAX package's sharded step: the features that
+    enter the stddev are gathered from every rank in rank order, through
+    an autograd-aware all-gather (differentiable twice, for R1), the
+    stddev is taken over the global grouping, and this rank keeps its own
+    rows. Every rank must run each forward and each backward together.
+    Without a group the forward sees only its own batch."""
 
     def __init__(self, size: int = 1024, channel_multiplier: int = 2,
                  stddev_group: int = 4):
@@ -349,6 +357,7 @@ class Discriminator(nn.Module):
             in_ch = channels[2 ** (i - 1)]
         self.convs = nn.Sequential(*layers)
         self.stddev_group = stddev_group
+        self.process_group = None
         self.final_conv = ConvLayer(in_ch + 1, channels[4], 3)
         self.final_linear = nn.Sequential(
             EqualLinear(channels[4] * 4 * 4, channels[4], activation="fused_lrelu"),
@@ -358,10 +367,17 @@ class Discriminator(nn.Module):
         """x: (B, 3, size, size) in [-1, 1]. Returns (B, 1) logits."""
         out = self.convs(x)
         b, c, h, w = out.shape
-        group = min(b, self.stddev_group)
-        y = out.reshape(group, b // group, c, h, w)
+        feats, rank = out, 0
+        if self.process_group is not None:
+            from e4s2024_torch.parallel.ddp import gather_rows_autograd, rank_and_world
+
+            feats = gather_rows_autograd(out, self.process_group)
+            rank = rank_and_world(self.process_group)[0]
+        n = feats.shape[0]
+        group = min(n, self.stddev_group)
+        y = feats.reshape(group, n // group, c, h, w)
         stddev = torch.sqrt(y.var(dim=0, unbiased=False) + 1e-8)
-        stddev = stddev.mean(dim=(1, 2, 3)).reshape(b // group, 1, 1, 1)
-        stddev = stddev.repeat(group, 1, h, w)
+        stddev = stddev.mean(dim=(1, 2, 3)).reshape(n // group, 1, 1, 1)
+        stddev = stddev.repeat(group, 1, h, w)[rank * b:(rank + 1) * b]
         out = self.final_conv(torch.cat([out, stddev], dim=1))
         return self.final_linear(out.reshape(b, -1))

@@ -1,1 +1,1 @@
-"""Data parallelism: a process group and DistributedDataParallel."""
+"""Data parallelism over a process group (`ddp.py`)."""

@@ -106,6 +106,8 @@ class FullFaceSwapPipeline:
         # the last pose gate: each pair's gap (None without an estimator) and
         # whether it was driven
         self.last_gate: dict | None = None
+        # the group `shard_inference` serves over
+        self.process_group = None
         if self.cfg.ct_mode not in CT_MODES:
             raise ValueError(f"unknown ct_mode {self.cfg.ct_mode!r}")
 
@@ -345,17 +347,40 @@ class FullFaceSwapPipeline:
             out["stage_times"] = dict(timer.times)
         return out
 
+    def shard_inference(self, process_group) -> None:
+        """Data-parallel serving over a process group, the counterpart of
+        JAX's `shard_inference(mesh)`: afterwards `swap_batch` on every
+        rank takes the whole pair batch, swaps its contiguous share (rank r
+        pairs [r B / w, (r + 1) B / w), as `P("dp")` splits the batch) and
+        all-gathers the uint8 outputs, so that every rank returns the whole
+        batch, as JAX's one program does. The pairs are independent: no
+        collective runs inside the swap. A batch that the world size does
+        not divide raises ValueError. JAX serves only its fused program, so
+        a configuration that takes the staged path (`_fused`) raises
+        RuntimeError here too."""
+        if not self._fused():
+            raise RuntimeError(
+                "sharded serving needs the fused path: disable optimize_W, pose driving "
+                "and the classical ct modes, and use components with a fused form")
+        self.process_group = process_group
+
     def swap_batch(self, source_crops255, target_crops255) -> torch.Tensor:
         """Swap B aligned pairs, (B, S, S, 3) -> (B, S, S, 3) uint8: every
         stage runs on the batch, in chunks of `cfg.max_fused_batch` pairs
-        (the whole batch when None); the pose gate decides per pair."""
-        sw = self.swapper
+        (the whole batch when None); the pose gate decides per pair. After
+        `shard_inference`, each rank swaps its share and the outputs are
+        gathered."""
+        from e4s2024_torch.parallel.ddp import gather_rows, shard_rows
+
+        sw, group = self.swapper, self.process_group
         with torch.inference_mode():
             src, tgt = sw._as_u8(source_crops255), sw._as_u8(target_crops255)
+            src, tgt = shard_rows(src, group), shard_rows(tgt, group)
             b = src.shape[0]
             chunk = b if self.cfg.max_fused_batch is None else max(1, self.cfg.max_fused_batch)
-            return torch.cat([self._run(src[i:i + chunk], tgt[i:i + chunk])["image"]
-                              for i in range(0, b, chunk)])
+            out = torch.cat([self._run(src[i:i + chunk], tgt[i:i + chunk])["image"]
+                             for i in range(0, b, chunk)])
+            return gather_rows(out, group)
 
     def swap_raw(self, source_img, target_img):
         """Raw-frame entry: detection and alignment (the swapper's landmark

@@ -26,6 +26,11 @@ swapper; for a float32 swapper `PTIConfig.compute_dtype` and
 `StitchingConfig.compute_dtype` set the precision of the steps. Video files
 are read and written by `e4s2024_torch.video_io`; this module takes frames
 as arrays.
+
+With `process_group=` (JAX's `mesh=`) both tunes run over the group, each
+rank on its contiguous share of the clip's frames (`training.pti`); every
+other stage runs on every rank over the whole clip, so every rank returns
+the same frames, and only rank 0 (`is_output_rank`) should write them out.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from e4s2024_torch.ops.resize import resize_bilinear
@@ -118,12 +124,14 @@ class FaceSwapVideoPipeline:
     `enhance_aligned((B, S, S, 3) [0, 255]) -> same shape`;
     `recolorer` with `recolor(imgA255, imgT255, a19, t19)`, the PTI recolor
     targets. After a call, `histories` holds the tunes' per-step metrics.
+    `process_group` tunes over a group (see the module docstring).
     """
 
     def __init__(self, swapper: FaceSwapper, cfg: VideoSwapConfig = VideoSwapConfig(),
                  loss_params: Mapping | None = None,
-                 driven_hook: Callable | None = None, recolorer=None, enhancer=None):
-        self.swapper, self.cfg = swapper, cfg
+                 driven_hook: Callable | None = None, recolorer=None, enhancer=None,
+                 process_group=None):
+        self.swapper, self.cfg, self.process_group = swapper, cfg, process_group
         self.loss_params = loss_params or {}
         self.driven_hook, self.recolorer, self.enhancer = driven_hook, recolorer, enhancer
         self.histories: dict[str, list] = {}
@@ -131,6 +139,12 @@ class FaceSwapVideoPipeline:
     @property
     def device(self) -> torch.device:
         return self.swapper.device
+
+    @property
+    def is_output_rank(self) -> bool:
+        """Whether this process writes the output: rank 0 of the group, or
+        the one process without a group."""
+        return self.process_group is None or dist.get_rank(self.process_group) == 0
 
     # ---------------- stage 1: alignment ----------------
 
@@ -307,7 +321,7 @@ class FaceSwapVideoPipeline:
         self.histories = {}
         if cfg.run_pti and cfg.pti.max_pti_steps > 0:
             with stage("pti_tune"):
-                coach = PTICoach(sw.rgi, self.loss_params, cfg.pti)
+                coach = PTICoach(sw.rgi, self.loss_params, cfg.pti, self.process_group)
                 state, self.histories["pti"] = coach.tune(
                     None, frames=_to_u8(driven), labels=d_labels.to(torch.uint8),
                     style_vectors=d_sv, recolor=_to_u8(recolor_frames))
@@ -318,7 +332,8 @@ class FaceSwapVideoPipeline:
             with stage("stitching_tune"):
                 with torch.no_grad():
                     content = self._gen_raw(swapped_svs, merged_masks)
-                stitcher = StitchingCoach(sw.rgi, self.loss_params, cfg.stitching)
+                stitcher = StitchingCoach(sw.rgi, self.loss_params, cfg.stitching,
+                                          self.process_group)
                 state, self.histories["stitching"] = stitcher.tune(
                     None, content_imgs=content, border_imgs=_to_u8(t_crops),
                     labels=merged_masks.to(torch.uint8), style_vectors=swapped_svs)

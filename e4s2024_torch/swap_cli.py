@@ -24,14 +24,17 @@ import numpy as np
 def load_params(path: str) -> dict:
     """A torch checkpoint file -> its state dict, without the fixed
     generator buffers a reference E4S checkpoint carries
-    (`convert.drop_generator_buffers`). Directories (orbax trees of the JAX
-    package) are refused: the port reads them once the training slice ports
-    `utils/checkpoint.py`."""
+    (`convert.drop_generator_buffers`). A directory (an orbax tree of the
+    JAX package) is refused with the command that converts it: the
+    repository's `orbax_to_torch.py zoo`, run where JAX and orbax are."""
     from e4s2024_torch.convert import drop_generator_buffers, load_reference_checkpoint
 
     if os.path.isdir(path):
-        raise ValueError(f"{path} is a directory: the port reads torch checkpoint files "
-                         "(.pt/.pth), not orbax checkpoint trees")
+        raise ValueError(
+            f"{path} is a directory: the port reads torch checkpoint files (.pt/.pth), not "
+            "orbax checkpoint trees; convert a JAX zoo where JAX and orbax are installed with "
+            "`python orbax_to_torch.py zoo <orbax_root> <out_dir>` and pass "
+            "<out_dir>/<name>.pt")
     return drop_generator_buffers(load_reference_checkpoint(path))
 
 

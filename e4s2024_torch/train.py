@@ -13,8 +13,9 @@ TrainConfig flags:
                          default: the DataConfig root of --dataset_name
   --world_size N --rank R --init_method URL
                          data parallelism over N processes, one card each
-                         (NCCL; gloo on the CPU); the global batch is
-                         --batch_size, each rank takes its share
+                         (NCCL; gloo on the CPU); every rank reads the same
+                         global batches of --batch_size and trains on its
+                         contiguous share of their rows
 
 The train split is read as celebahq19 labels, as the JAX package reads it.
 """
@@ -66,7 +67,7 @@ def main(argv=None):
     root = own.data_root or (cfg.data.celeba_root if cfg.data.dataset_name == "celeba"
                              else cfg.data.ffhq_root)
     ds = FaceMaskDataset(root, mode="train", fraction=cfg.data.ds_frac, flip_p=cfg.data.flip_p)
-    batches = ds.batches(cfg.train.batch_size // world, shard=(rank, world))
+    batches = ds.batches(cfg.train.batch_size)
 
     def log(step, metrics):
         if step % 50 == 0 and rank == 0:
@@ -74,14 +75,14 @@ def main(argv=None):
             print(f"[step {step}] {msg}", flush=True)
 
     # the validation stream for the best-model save (reference
-    # coach.py:570-631): each rank its share of the test split, and a split
-    # too small for one batch turns validation off (an empty stream would
-    # never end)
+    # coach.py:570-631): global batches of the test split, and a split too
+    # small for one batch turns validation off (an empty stream would never
+    # end)
     val_batches = None
     if cfg.train.val_every:
         val_ds = FaceMaskDataset(root, mode="test", fraction=cfg.data.ds_frac, flip_p=0.0)
         if len(val_ds) >= cfg.train.batch_size:
-            val_batches = val_ds.batches(cfg.train.batch_size // world, shard=(rank, world))
+            val_batches = val_ds.batches(cfg.train.batch_size)
         elif rank == 0:
             print(f"[train] test split has {len(val_ds)} images "
                   f"(< batch_size {cfg.train.batch_size}); validation off", flush=True)

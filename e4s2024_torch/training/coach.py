@@ -13,8 +13,12 @@
   tensors do not require grad and get no optimizer state.
 - Adam (or Ranger) with optax's rules, the learning rate x0.1 at
   `lr_decay_step` updates of each optimizer (`training/optim.py`).
-- Data parallelism: with a process group the G forward and the D run in
-  DistributedDataParallel (`parallel/ddp.py`), each rank on its shard.
+- Data parallelism, JAX's `Coach(mesh=make_mesh(w))`: with a process
+  group every step takes the global batch, each rank runs its contiguous
+  share of the rows (`parallel.ddp.shard_rows`, `P("dp")`), the
+  Discriminator's minibatch stddev gathers its features over the group
+  (the global batch's stddev, as JAX's), and the gradients are averaged
+  over the group before each update; the weights start from rank 0's.
 - Checkpoints are torch files with the JAX package's keys (`step`,
   `params`, `buffers`, `ema_params`, `d_params`, `g_opt`, `d_opt`).
 
@@ -27,12 +31,12 @@ from __future__ import annotations
 
 import math
 import os
+import weakref
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Mapping
 
 import numpy as np
 import torch
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from e4s2024_torch import resolve_device
@@ -42,7 +46,8 @@ from e4s2024_torch.losses.losses import adv_d_loss, adv_g_loss, r1_penalty
 from e4s2024_torch.losses.recon import ReconCriterion
 from e4s2024_torch.models.rgi import RGINet
 from e4s2024_torch.models.stylegan2 import Discriminator
-from e4s2024_torch.parallel.ddp import data_parallel, mean_over_group
+from e4s2024_torch.parallel.ddp import (average_gradients, broadcast_parameters,
+                                        mean_over_group, shard_rows)
 from e4s2024_torch.training import optim
 from e4s2024_torch.utils.checkpoint import load_pytree, save_pytree
 
@@ -138,31 +143,13 @@ class CoachState:
         return dict(self.disc.named_parameters())
 
 
-class _Recon(nn.Module):
-    """The G step's forward, image only; under `remat` the whole forward
-    is recomputed in the backward pass. A module of its own so that the
-    recomputation happens inside DistributedDataParallel's forward."""
-
-    def __init__(self, net: RGINet, regional_mode: str, remat: bool):
-        super().__init__()
-        self.net, self.regional_mode, self.remat = net, regional_mode, remat
-
-    def _fwd(self, img, onehot):
-        return self.net(img, onehot, regional_mode=self.regional_mode)[0]
-
-    def forward(self, img, onehot):
-        if self.remat:
-            return checkpoint(self._fwd, img, onehot, use_reentrant=False)
-        return self._fwd(img, onehot)
-
-
 class Coach:
     """Builds the nets, the optimizers and the G and D steps.
 
     `loss_params` may hold "lpips", "arcface" and "parser" entries (the
     port's modules or their state dicts); a missing one disables its term.
     `process_group` (from `parallel.ddp.make_process_group`) runs the steps
-    data-parallel; `device` defaults to CUDA."""
+    data-parallel over global batches; `device` defaults to CUDA."""
 
     def __init__(self, cfg: TrainConfig, loss_params: Mapping | None = None, *,
                  process_group=None, device=None):
@@ -182,7 +169,8 @@ class Coach:
         self._mask = _g_trainable_mask(names, cfg)
         self._g_tx = optim.masked(make(sched), self._mask)
         self._d_tx = make(sched)
-        self._wrapped: dict = {}
+        # the nets whose weights were made rank 0's since they were last set
+        self._synced = weakref.WeakSet()
 
     def _nets(self) -> tuple[RGINet, Discriminator]:
         cfg = self.cfg
@@ -228,6 +216,8 @@ class Coach:
                 state.disc.load_state_dict(
                     as_tensors(drop_discriminator_buffers(d_state_dict)), strict=True)
         state.ema_params = _clone(state.params)
+        self._synced.discard(state.net)
+        self._synced.discard(state.disc)
         return state
 
     def load_tree(self, state: CoachState, tree: Mapping) -> CoachState:
@@ -247,40 +237,49 @@ class Coach:
         if "g_opt" in tree:
             state.g_opt = _to_device(tree["g_opt"], dev)
             state.d_opt = _to_device(tree["d_opt"], dev)
+        self._synced.discard(state.net)
+        self._synced.discard(state.disc)
         return state
 
     # ---------------- steps ----------------
 
-    def _model(self, module: nn.Module, find_unused: bool = False) -> nn.Module:
-        """`module` in DistributedDataParallel when the coach has a group
-        (one wrapper per module)."""
+    def _local(self, state: CoachState, *batch: torch.Tensor) -> tuple:
+        """This rank's rows of a global batch. Under a group the first step
+        after a state's weights were set gives its nets rank 0's weights,
+        and the Discriminator joins the group for its minibatch stddev."""
         if self.group is None:
-            return module
-        key = id(module)
-        if key not in self._wrapped:
-            self._wrapped[key] = data_parallel(module, self.group, find_unused)
-        return self._wrapped[key]
+            return batch
+        state.disc.process_group = self.group
+        for module in (state.net, state.disc):
+            if module not in self._synced:
+                broadcast_parameters(module, self.group)
+                self._synced.add(module)
+        return tuple(shard_rows(x, self.group) for x in batch)
 
-    def _recon_module(self, net: RGINet) -> nn.Module:
-        key = ("recon", id(net))
-        if key not in self._wrapped:
-            self._wrapped[key] = _Recon(net, self.cfg.regional_mode, self.cfg.remat)
-        # the noise weights are trainable and unused (no noise is injected)
-        return self._model(self._wrapped[key], find_unused=True)
+    def _recon(self, net: RGINet, img, onehot):
+        """The G step's forward, image only; under `remat` the whole forward
+        is recomputed in the backward pass."""
+        def fwd(img, onehot):
+            return net(img, onehot, regional_mode=self.cfg.regional_mode)[0]
+
+        if self.cfg.remat:
+            return checkpoint(fwd, img, onehot, use_reentrant=False)
+        return fwd(img, onehot)
 
     def g_step(self, state: CoachState, img: torch.Tensor, onehot: torch.Tensor):
-        """One generator update (reference coach.py:453-503): the recon
-        criterion plus adv_lambda times the adversarial loss, the masked
-        optimizer over the RGI net, the EMA. Returns (state, metrics as
-        0-d tensors)."""
+        """One generator update (reference coach.py:453-503) on a global
+        batch: the recon criterion plus adv_lambda times the adversarial
+        loss, the masked optimizer over the RGI net, the EMA. Returns
+        (state, metrics as 0-d tensors, this rank's batch means)."""
         cfg = self.cfg
+        img, onehot = self._local(state, img, onehot)
         params = state.params
         d_params = list(state.disc.parameters())
         flags = [p.requires_grad for p in d_params]
         for p in d_params:
             p.requires_grad_(False)
         try:
-            recon = self._recon_module(state.net)(img, onehot)
+            recon = self._recon(state.net, img, onehot)
             loss, metrics = self.criterion(recon, img)
             if cfg.adv_lambda > 0 and cfg.train_D:
                 adv = adv_g_loss(state.disc(recon))
@@ -293,6 +292,7 @@ class Coach:
         finally:
             for p, flag in zip(d_params, flags):
                 p.requires_grad_(flag)
+        average_gradients([p for k, p in params.items() if self._mask[k]], self.group)
         grads = {k: p.grad for k, p in params.items() if self._mask[k]}
         updates, state.g_opt = self._g_tx.update(grads, state.g_opt, params)
         optim.apply_updates(params, updates)
@@ -304,14 +304,16 @@ class Coach:
 
     def d_step(self, state: CoachState, img: torch.Tensor, onehot: torch.Tensor,
                with_r1: bool = False):
-        """One discriminator update (reference coach.py:321-360): softplus
-        losses on the real batch and the (detached) reconstruction; with
-        `with_r1`, plus r1_lambda / 2 * R1 * max(d_reg_every, 1). Returns
-        (state, metrics as 0-d tensors)."""
+        """One discriminator update (reference coach.py:321-360) on a global
+        batch: softplus losses on the real batch and the (detached)
+        reconstruction; with `with_r1`, plus r1_lambda / 2 * R1 *
+        max(d_reg_every, 1). Returns (state, metrics as 0-d tensors, this
+        rank's batch means)."""
         cfg = self.cfg
+        img, onehot = self._local(state, img, onehot)
         with torch.no_grad():
             recon = state.net(img, onehot, regional_mode=cfg.regional_mode)[0]
-        disc = self._model(state.disc)
+        disc = state.disc
         fake_pred, real_pred = disc(recon), disc(img)
         loss = adv_d_loss(real_pred, fake_pred)
         metrics = {"d_loss": loss, "real_score": real_pred.mean(),
@@ -324,6 +326,7 @@ class Coach:
         for p in d_params.values():
             p.grad = None
         loss.backward()
+        average_gradients(d_params.values(), self.group)
         grads = {k: p.grad for k, p in d_params.items()}
         updates, state.d_opt = self._d_tx.update(grads, state.d_opt, d_params)
         optim.apply_updates(d_params, updates)
@@ -350,8 +353,9 @@ class Coach:
             ckpt_dir: str | None = None, save_every: int | None = None,
             val_batches: Iterable | None = None, val_every: int | None = None,
             val_steps: int = 4) -> CoachState:
-        """Run `steps` iterations over (img, onehot) batches: img (B, 3, S, S)
-        in [-1, 1], onehot (B, K, 512, 512), numpy or tensors.
+        """Run `steps` iterations over (img, onehot) global batches: img
+        (B, 3, S, S) in [-1, 1], onehot (B, K, 512, 512), numpy or tensors;
+        under a group every rank is given the same batches.
 
         D before G when step % d_every == 0, with R1 when d_reg_every != -1
         and step % d_reg_every == 0; `callback(step, metrics)` with float
@@ -387,14 +391,14 @@ class Coach:
         return state
 
     def validate(self, batches: Iterable, state: CoachState, steps: int = 4) -> float:
-        """Mean reconstruction loss over `steps` validation batches, no
-        update (reference Coach.validate, coach.py:570-622). Pass the same
-        iterator again to continue it."""
+        """Mean reconstruction loss over `steps` validation batches (global
+        batches, as `fit` takes them), no update (reference Coach.validate,
+        coach.py:570-622). Pass the same iterator again to continue it."""
         it = iter(batches)
         losses = []
         with torch.no_grad():
             for _ in range(steps):
-                img, onehot = self._as_device(*next(it))
+                img, onehot = self._local(state, *self._as_device(*next(it)))
                 recon = state.net(img, onehot, regional_mode=self.cfg.regional_mode)[0]
                 losses.append(self.criterion(recon, img)[0])
         return float(mean_over_group(torch.stack(losses).mean().reshape(1), self.group))

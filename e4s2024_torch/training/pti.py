@@ -2,7 +2,7 @@
 
 Counterpart of `e4s2024_tpu/training/pti.py` (reference
 training/video_swap_ft_coach.py:239 and video_swap_stich_coach.py:208), on
-one device:
+one device or, with `process_group=`, over a process group:
 
 - `PTICoach` tunes the generator so that every frame's fixed style vectors
   reconstruct the driven frames, plus a foreground-masked recolor term; one
@@ -13,10 +13,25 @@ one device:
   face (content) region and the target frame in the dilated border ring.
 
 Both step in a plain loop: the JAX package's `scan_steps`, which fuses
-optimizer steps into one XLA program, has no counterpart here. Adam runs over the parameters that
-`_g_trainable_mask` selects (torch's Adam is optax's: eps outside the square
-root); the rest are frozen. `remat` recomputes the synthesis in the backward
-pass (`torch.utils.checkpoint`).
+optimizer steps into one XLA program, has no counterpart here.
+
+With a process group (`parallel.ddp.make_process_group`), the counterpart
+of JAX's `mesh=` with its frame axis `fr`: every rank is given the whole
+clip and tunes its contiguous share of the frames (rank r frames
+[r F / w, (r + 1) F / w); a frame count that the world size does not
+divide raises). Each step's gradient is the frame mean of the whole clip,
+each rank's share's mean averaged over the group, so every rank applies
+the same Adam update; the ranks must start from the same weights, as the
+replicated weights of JAX's one program are. The metrics are the group's
+means. As JAX does on a mesh, `frames_per_step` is ignored and every step
+takes the whole clip. A rank still accumulates its share over chunks of
+`frames_per_chunk` frames: equal chunks keep the same frame-mean
+objective.
+
+Adam runs over the parameters that `_g_trainable_mask` selects (torch's
+Adam is optax's: eps outside the square root); the rest are frozen.
+`remat` recomputes the synthesis in the backward pass
+(`torch.utils.checkpoint`).
 
 Precision, as in the JAX package: the master weights keep the net's dtype.
 A float32 net with `compute_dtype="bfloat16"` casts, in every step, its
@@ -51,6 +66,7 @@ from e4s2024_torch.losses.recon import ReconCriterion
 from e4s2024_torch.models.rgi import RGINet
 from e4s2024_torch.ops.morphology import dilation, erosion
 from e4s2024_torch.ops.resize import resize_bilinear
+from e4s2024_torch.parallel.ddp import average_gradients, mean_over_group, shard_rows
 from e4s2024_torch.training.coach import TrainConfig, _g_trainable_mask
 
 # non-face classes of the 12-class map: background, hair, earring
@@ -167,11 +183,11 @@ class _Coach:
     trainable set, the (optionally recomputed) synthesis, the step over
     chunks and the metrics fetched once."""
 
-    def __init__(self, net: RGINet, loss_params: Mapping, cfg):
+    def __init__(self, net: RGINet, loss_params: Mapping, cfg, process_group=None):
         if cfg.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
                              f"got {cfg.compute_dtype!r}")
-        self.net, self.cfg = net, cfg
+        self.net, self.cfg, self.group = net, cfg, process_group
         # the steps' dtype: compute_dtype for float32 master weights, the
         # master dtype for lower-precision ones
         master = net.latent_avg.dtype
@@ -248,27 +264,35 @@ class _Coach:
             grads = [p.grad for g in opt.param_groups for p in g["params"] if p.grad is not None]
             torch._foreach_div_(grads, len(parts))
             acc = {k: v / len(parts) for k, v in acc.items()}
+        average_gradients([p for g in opt.param_groups for p in g["params"]], self.group)
         opt.step()
         return acc
 
-    @staticmethod
-    def _sync_history(history: list[dict]) -> list[dict[str, float]]:
-        """Per-step metric tensors -> host floats, one copy per key."""
+    def _sync_history(self, history: list[dict]) -> list[dict[str, float]]:
+        """Per-step metric tensors -> host floats (the group's means), one
+        copy."""
         if not history:
             return []
-        flat = {k: torch.stack([h[k].float() for h in history]).cpu().tolist()
-                for k in history[0]}
-        return [{k: v[i] for k, v in flat.items()} for i in range(len(history))]
+        keys = list(history[0])
+        flat = torch.stack([torch.stack([h[k].float() for h in history]) for k in keys])
+        flat = mean_over_group(flat, self.group).cpu().tolist()
+        return [{k: flat[j][i] for j, k in enumerate(keys)} for i in range(len(history))]
 
     def _as_device(self, *arrays) -> tuple:
         return tuple(torch.as_tensor(a).to(self.device) for a in arrays)
 
+    def _share(self, *inputs: torch.Tensor) -> tuple:
+        """This rank's contiguous share of the clip's frames (all of them
+        without a group)."""
+        return tuple(shard_rows(x, self.group) for x in inputs)
+
 
 class PTICoach(_Coach):
-    """Per-video generator tune on one device."""
+    """Per-video generator tune, on one device or over `process_group`."""
 
-    def __init__(self, net: RGINet, loss_params: Mapping, cfg: PTIConfig = PTIConfig()):
-        super().__init__(net, loss_params, cfg)
+    def __init__(self, net: RGINet, loss_params: Mapping, cfg: PTIConfig = PTIConfig(),
+                 process_group=None):
+        super().__init__(net, loss_params, cfg, process_group)
 
     def _chunk_loss(self, work, frames, labels, style_vectors, recolor):
         """Loss and metrics of one chunk. frames and recolor (c, S, S, 3)
@@ -299,11 +323,11 @@ class PTICoach(_Coach):
             frames, labels, style_vectors, recolor)
         if cfg.erode:
             labels = eroded_label_map(labels, cfg.erode_radius)
+        inputs = self._share(frames, labels, style_vectors, recolor)
         work, opt = self._working_copy(state)
-        inputs = (frames, labels, style_vectors, recolor)
-        f = frames.shape[0]
+        f = inputs[0].shape[0]
         n_steps = cfg.max_pti_steps if steps is None else steps
-        if cfg.frames_per_step and f > cfg.frames_per_step:
+        if self.group is None and cfg.frames_per_step and f > cfg.frames_per_step:
             # the JAX package's draw: a permutation consumed frames_per_step
             # at a time, reshuffled when exhausted
             m, prng = cfg.frames_per_step, np.random.default_rng(cfg.sample_seed)
@@ -324,8 +348,8 @@ class StitchingCoach(_Coach):
     the border ring against the target frame."""
 
     def __init__(self, net: RGINet, loss_params: Mapping,
-                 cfg: StitchingConfig = StitchingConfig()):
-        super().__init__(net, loss_params, cfg)
+                 cfg: StitchingConfig = StitchingConfig(), process_group=None):
+        super().__init__(net, loss_params, cfg, process_group)
 
     def _chunk_loss(self, work, content_img, border_img, labels, style_vectors):
         cfg = self.cfg
@@ -351,7 +375,7 @@ class StitchingCoach(_Coach):
         """content and border images: (F, S, S, 3) uint8 [0, 255] or float
         [-1, 1]; labels (F, Hm, Wm) ints (uint8 welcome); style_vectors
         (F, K, 1280). Returns (tuned state dict, per-step metrics)."""
-        inputs = self._as_device(content_imgs, border_imgs, labels, style_vectors)
+        inputs = self._share(*self._as_device(content_imgs, border_imgs, labels, style_vectors))
         work, opt = self._working_copy(state)
         n_steps = self.cfg.max_steps if steps is None else steps
         f = inputs[0].shape[0]
