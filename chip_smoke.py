@@ -129,7 +129,17 @@ Phases, each of which must pass or the script exits non-zero:
    the runs in turns (ungrouped, grouped, grouped, ungrouped);
    (c) `swap_batch` at B=4 of phase 7's zoo pipeline after
    `shard_inference(group)` (uint8, phase 7's 0.5 levels mean, the same
-   launches as one call).
+   launches as one call);
+12. grid: phase 9's fit (its TrainConfig, weights, batches and 3 steps:
+   D+R1, D, D+R1, each before a G step) by `Coach(process_group=
+   make_process_grid(1, 2))`: two spawned ranks on the one card over gloo
+   (NCCL refuses two ranks on one device; gloo carries the height split's
+   all-reduces and broadcasts on CUDA tensors), each holding half of every
+   image's rows. Each rank's per-step metrics against phase 9's run
+   through the kernels and its run with the plain versions (phase 9's
+   bounds), its K1-K3 launches (forward, backward, double backward) in the
+   fit, equal to phase 9's fit's for every kernel, its ms per step kind and its peak memory beside phase 9's
+   ungrouped peak.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}. Float32 convolutions and matrix
@@ -299,6 +309,10 @@ BF16_BACKWARD_CASES = (
 # phase 11: the tunes' steps over the group and their bound against the
 # ungrouped run (phase 6's), and the phase's time budget in seconds
 GROUP_TUNE_STEPS, GROUP_TUNE_REL, GROUP_PHASE_S = 2, 1e-3, 60.0
+
+# phase 12: the grid of ranks (dp, sp) and the seconds its ranks may take,
+# start-up and kernel loading included, before they are stopped
+GRID, GRID_TIMEOUT_S = (1, 2), 300.0
 
 # kernels whose bfloat16 instances must hold tensor-core instructions
 TENSOR_CORE_KERNELS = ("swin_block_kernel", "window_attention_kernel")
@@ -2826,6 +2840,127 @@ def phase_group(torch, rgi_sd, bise_sd, card: str):
     return rec
 
 
+# ------------------------------------------------------------ phase 12
+
+
+def _grid_rank(rank: int, world: int, run: str) -> None:
+    """One rank of phase 12 (a spawned process): phase 9's fit over the
+    grid, its record written to `run`/grid{rank}.json (or its traceback to
+    `run`/error{rank}.txt)."""
+    import traceback
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from e4s2024_torch import kernels
+        from e4s2024_torch.models.rgi import RGINet
+        from e4s2024_torch.parallel.ddp import make_process_grid
+        from e4s2024_torch.training.coach import Coach
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", store=dist.FileStore(f"{run}/store", world),
+                                world_size=world, rank=rank)
+        try:
+            grid = make_process_grid(*GRID)
+            torch.manual_seed(SEED)  # phase 9's RGI weights (_random_state_dicts)
+            rgi_sd = RGINet().state_dict()
+            setup = _train_setup(torch)
+            cfg, nets, d_sd, batches = setup
+            coach = Coach(cfg, nets, process_group=grid, device="cuda")
+            state = _train_start(torch, coach, rgi_sd, d_sd)
+            calls = _timed_steps(torch, kernels, coach)
+            logs = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            coach.fit(batches, state, TRAIN_STEPS, callback=lambda s, m: logs.append(m))
+            torch.cuda.synchronize()
+            rec = {"rank": rank, "wall_s": time.perf_counter() - t0, "metrics": logs,
+                   "step_ms": [{"kind": c["kind"], "ms": c["ms"]} for c in calls],
+                   "launches": kernels.launch_counts(),
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        finally:
+            dist.destroy_process_group()
+        Path(run, f"grid{rank}.json").write_text(json.dumps(rec))
+    except BaseException:
+        Path(run, f"error{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def phase_grid(torch, train, card: str):
+    """Phase 9's fit over the (1, 2) grid on two spawned ranks (see the
+    module docstring, phase 12), held against phase 9's record `train`.
+    Returns the record, rank 0's launches under "launches"."""
+    import multiprocessing
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    world = GRID[0] * GRID[1]
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as run:
+        procs = [ctx.Process(target=_grid_rank, args=(r, world, run)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + GRID_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.perf_counter(), 0.0))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errors = [Path(run, f"error{r}.txt").read_text() for r in range(world)
+                  if Path(run, f"error{r}.txt").exists()]
+        if hung or errors or any(p.exitcode for p in procs):
+            raise AssertionError(f"grid: ranks {hung} still running after {GRID_TIMEOUT_S} s, "
+                                 f"exit codes {[p.exitcode for p in procs]}\n"
+                                 + "\n".join(errors))
+        ranks = [json.loads(Path(run, f"grid{r}.json").read_text()) for r in range(world)]
+    problems, rec = [], {"card": card, "grid": list(GRID), "backend": "gloo",
+                         "ungrouped_peak_mem_gib": train["peak_mem_gib_fit_remat_off"],
+                         "limits": {"step0": TRAIN_STEP0_REL, "later": TRAIN_LATER_REL,
+                                    "r1_later": TRAIN_R1_LATER_REL}, "ranks": []}
+    needed = ("fused_leaky_relu", "upfirdn2d", "regional_scale", *BACKWARD, *DOUBLE_BACKWARD)
+    for r in ranks:
+        by_kind = {}
+        for c in r["step_ms"][2:]:
+            by_kind.setdefault(c["kind"], []).append(c["ms"])
+        rel, probs = _train_compare(r["metrics"], train["metrics"])
+        prel, pprobs = _train_compare(r["metrics"], train["plain_metrics"])
+        problems += [f"rank {r['rank']} vs phase 9: {p}" for p in probs]
+        problems += [f"rank {r['rank']} vs phase 9's plain versions: {p}" for p in pprobs]
+        if [c["kind"] for c in r["step_ms"]] != ["d_r1", "g", "d", "g", "d_r1", "g"]:
+            problems.append(f"rank {r['rank']} step kinds {r['step_ms']}")
+        # the split runs phase 9's kernels on windows: each launch once, as there
+        if any(r["launches"][k] == 0 for k in needed) or r["launches"] != train["launches"]:
+            problems.append(f"rank {r['rank']} launches {r['launches']}, phase 9's "
+                            f"{train['launches']}")
+        rec["ranks"].append({
+            "rank": r["rank"], "wall_s": r["wall_s"], "step_ms": r["step_ms"],
+            "ms_per_step_kind": {k: float(np.mean(v)) for k, v in by_kind.items()},
+            "peak_mem_gib": r["peak_mem_gib"], "vs_phase9_rel": rel, "vs_plain_rel": prel,
+            "launches": {k: v for k, v in r["launches"].items() if v}})
+        if not r["peak_mem_gib"] < rec["ungrouped_peak_mem_gib"]:
+            problems.append(f"rank {r['rank']} peak {r['peak_mem_gib']} GiB is not under the "
+                            f"ungrouped {rec['ungrouped_peak_mem_gib']} GiB")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["launches"] = ranks[0]["launches"]
+    log(f"[grid] {json.dumps(rec)}")
+    log(f"[grid] phase 12: {rec['phase_s']:.1f} s; per rank peak "
+        f"{[round(r['peak_mem_gib'], 3) for r in ranks]} GiB against the ungrouped "
+        f"{rec['ungrouped_peak_mem_gib']:.3f} GiB ({card})")
+    if problems:
+        raise AssertionError(f"grid: {problems}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2861,26 +2996,30 @@ def main() -> int:
     train = phase_train(torch, rgi_sd)
     edit = phase_edit(torch, rgi_sd, bise_sd, video)
     group = phase_group(torch, rgi_sd, bise_sd, card)
+    grid = phase_grid(torch, train, card)
 
     # launches: K1-K3 on the aligned swaps of phase 3, the raw-frame calls of
     # phase 5, the video clip of phase 6, the zoo swaps of phase 7, the
     # reenacted swaps and the LIA drive of phase 8, the trainer's fit of
     # phase 9, the editor, apps and bfloat16-tuned clip of phase 10 and the
-    # grouped runs of phase 11; the backwards on the clips, the fit and the
-    # grouped D+R1 step and tunes, the double backwards (R1's) on the fit
-    # and the grouped D+R1 step; K5 on the enhanced swaps of phases 4 and 5, K4 and K6 on
-    # the upscaler runs of their routes
+    # grouped runs of phase 11 and rank 0's grid fit of phase 12; the
+    # backwards on the clips, the fits and the grouped D+R1 step and tunes,
+    # the double backwards (R1's) on the fits and the grouped D+R1 step; K5
+    # on the enhanced swaps of phases 4 and 5, K4 and K6 on the upscaler
+    # runs of their routes
     launches = {name: sum(main_path[m]["launches"][name] for m in main_path)
                 + sum(r["launches"].get(name, 0) for r in raw.values())
                 + video["launches"][name] + zoo["launches"][name]
                 + reenact["launches"][name] + reenact["lia_launches"][name]
                 + train["launches"][name] + edit["launches"].get(name, 0)
-                + group["launches"].get(name, 0)
+                + group["launches"].get(name, 0) + grid["launches"].get(name, 0)
                 for name in PER_CALL["exact"]}
     launches.update({name: video["launches"][name] + train["launches"][name]
                      + edit["launches"].get(name, 0) + group["launches"].get(name, 0)
+                     + grid["launches"].get(name, 0)
                      for name in BACKWARD})
     launches.update({name: train["launches"][name] + group["launches"].get(name, 0)
+                     + grid["launches"].get(name, 0)
                      for name in DOUBLE_BACKWARD})
     launches["fused_swin_block"] = (enhance["launches"]["fused_swin_block"]
                                     + raw["swap_raw exact"]["launches"]["fused_swin_block"])

@@ -1,8 +1,9 @@
 """Datasets: CelebA-HQ / FFHQ face and mask pairs (counterpart of
 `e4s2024_tpu/data/datasets.py`; reference datasets/dataset.py:260
-`CelebAHQDataset`, :502 `FFHQDataset`). The video tunes take their
-per-frame arrays directly (`training.pti`), so the JAX package's two
-video containers, which nothing builds, have no counterpart.
+`CelebAHQDataset`, :502 `FFHQDataset`), and the JAX package's two
+containers of a clip's tuning inputs, `VideoSwapFramesDataset` and
+`VideoStitchingDataset` (the tunes themselves take the arrays directly,
+`training.pti`).
 
 Items are numpy HWC, as the JAX package's: images float32 in [-1, 1],
 labels int32 12-class maps. `FaceMaskDataset.batches` stacks them into the
@@ -142,3 +143,36 @@ class FaceMaskDataset:
                 yield (np.ascontiguousarray(img.transpose(0, 3, 1, 2)),
                        np.ascontiguousarray(onehot.transpose(0, 3, 1, 2)))
 
+
+
+@dataclass
+class VideoSwapFramesDataset:
+    """Per-frame PTI inputs (reference datasets/video_swap_dataset.py:8):
+    driven images, their labels, per-frame style vectors and recolor
+    targets, kept as arrays (the reference round-trips .pt / .png files
+    per frame)."""
+
+    driven: np.ndarray         # (F, S, S, 3) in [-1, 1]
+    driven_labels: np.ndarray  # (F, Hm, Wm) int 12-class
+    style_vectors: np.ndarray  # (F, K, 1280)
+    recolor: np.ndarray        # (F, S, S, 3) in [-1, 1]
+    target: np.ndarray | None = None
+    target_labels: np.ndarray | None = None
+
+    def __len__(self):
+        return len(self.driven)
+
+
+@dataclass
+class VideoStitchingDataset:
+    """Stitching-tune inputs (video_swap_dataset.py:49): the swapped labels
+    and style vectors, the content (PTI's result) and border (the target
+    frame) images."""
+
+    content: np.ndarray         # (F, S, S, 3)
+    border: np.ndarray          # (F, S, S, 3)
+    swapped_labels: np.ndarray  # (F, Hm, Wm)
+    style_vectors: np.ndarray   # (F, K, 1280)
+
+    def __len__(self):
+        return len(self.content)

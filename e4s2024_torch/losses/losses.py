@@ -5,6 +5,14 @@ Adversarial softplus losses (adv_loss.py:8-25), the R1 gradient penalty
 (adv_loss.py:29-40), the W-norm (w_norm.py), the path-length penalty, and
 the multiscale feature-cosine loss shared by IDLoss (id_loss.py:31-57) and
 FaceParsingLoss (face_parsing_loss.py:53-78).
+
+Under a height split (`parallel.spatial`) the images are slabs of rows
+and every loss here comes out whole on every rank (the split's loss
+convention): R1 seeds its gradient with 1/n of the logits' sum (the
+logits are the same on every rank) and sums the squared gradient over the
+split; LPIPS's pyramid pools whole bins of each slab; the ID loss gathers
+the image pooled to 256^2 (and the parsing loss, in `recon.py`, the image
+at 512^2) and runs its net whole.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from e4s2024_torch.ops.pool import adaptive_avg_pool2d
+from e4s2024_torch.parallel import spatial
 
 
 def adv_g_loss(fake_pred: torch.Tensor) -> torch.Tensor:
@@ -38,8 +47,8 @@ def r1_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor],
     `upfirdn2d_double_backward`). K3's is once-differentiable, so a
     `d_apply` that runs K3 raises here; the Discriminator runs none."""
     x = real_img.detach().requires_grad_(True)
-    (grad,) = torch.autograd.grad(d_apply(x).sum(), x, create_graph=True)
-    return grad.square().reshape(grad.shape[0], -1).sum(dim=1).mean()
+    (grad,) = torch.autograd.grad(spatial.share(d_apply(x).sum()), x, create_graph=True)
+    return spatial.all_reduce(grad.square().reshape(grad.shape[0], -1).sum(dim=1)).mean()
 
 
 def w_norm_loss(latent: torch.Tensor, latent_avg: torch.Tensor | None = None,
@@ -64,9 +73,31 @@ def feature_cosine_loss(feats_pred: Sequence[torch.Tensor],
     return total
 
 
+def whole_image(x: torch.Tensor, size: int) -> torch.Tensor:
+    """x adaptive-average-pooled to (size, size) unless it has that size
+    already. Under a height split the pooled image is gathered whole onto
+    every rank (pooled first where its rows divide the slab's, else
+    gathered first)."""
+    n = spatial.parts()
+    if n > 1:
+        if (x.shape[2] * n) % size == 0:
+            return spatial.gather_rows(adaptive_avg_pool2d(x, (size // n, size)))
+        x = spatial.gather_rows(x)
+    if x.shape[2] != size:
+        with spatial.suspended():
+            x = adaptive_avg_pool2d(x, (size, size))
+    return x
+
+
 def id_loss_crop(x: torch.Tensor) -> torch.Tensor:
     """The IDLoss input pipeline (reference id_loss.py:24-28): adaptive pool
-    to 256, rows 35:223 and columns 32:220, adaptive pool to 112. NCHW."""
+    to 256, rows 35:223 and columns 32:220, adaptive pool to 112. NCHW.
+    Under a height split the crop (rows 35:223 cross the slabs) is taken
+    from the gathered 256^2 image and returned whole on every rank."""
+    if spatial.parts() > 1:
+        x = whole_image(x, 256)
+        with spatial.suspended():
+            return id_loss_crop(x)
     if x.shape[2] != 256:
         x = adaptive_avg_pool2d(x, (256, 256))
     return adaptive_avg_pool2d(x[:, :, 35:223, 32:220], (112, 112))
@@ -78,15 +109,16 @@ def multiscale_lpips(lpips_apply: Callable[[torch.Tensor, torch.Tensor], torch.T
     """LPIPS summed over an adaptive-average-pool pyramid (full, /2, /4),
     as reference training/coach.py:476-487; scales under `min_size` px,
     where AlexNet's pools leave no pixel, are skipped (the JAX package's
-    extension for tiny configurations)."""
+    extension for tiny configurations). Under a height split the images
+    and each scale of the pyramid are slabs of rows."""
     total = 0.0
-    size = y_hat.shape[2]
+    size = y_hat.shape[2] * spatial.parts()
     for i in range(n_scales):
         s = size // 2 ** i
         if s < min_size:
             break
-        total = total + lpips_apply(adaptive_avg_pool2d(y_hat, (s, s)),
-                                    adaptive_avg_pool2d(y, (s, s)))
+        hw = (spatial.local_rows(s), s)
+        total = total + lpips_apply(adaptive_avg_pool2d(y_hat, hw), adaptive_avg_pool2d(y, hw))
     return total
 
 

@@ -1,6 +1,12 @@
 """The shared reconstruction criterion, LPIPS + ID + face parsing + L2
 (reference training/coach.py:453-503), counterpart of
-`e4s2024_tpu/losses/recon.py` in NCHW."""
+`e4s2024_tpu/losses/recon.py` in NCHW.
+
+Under a height split (`parallel.spatial`) recon and img are slabs of rows
+and every term comes out whole on every rank: the L2 mean is a sum over
+the split, LPIPS runs on the slabs, and ArcFace (on the 112^2 crop of the
+256^2 image) and the parsing U-Net (on the 512^2 image) run whole on the
+gathered images, the only tensors of the criterion held whole."""
 
 from __future__ import annotations
 
@@ -9,11 +15,12 @@ from typing import Mapping
 import torch
 from torch import nn
 
-from e4s2024_torch.losses.losses import feature_cosine_loss, id_loss_crop, multiscale_lpips
+from e4s2024_torch.losses.losses import (feature_cosine_loss, id_loss_crop, multiscale_lpips,
+                                         whole_image)
 from e4s2024_torch.models.arcface import ArcFaceBackbone
 from e4s2024_torch.models.lpips import LPIPS
 from e4s2024_torch.models.parser_unet import ParsingUNet
-from e4s2024_torch.ops.pool import adaptive_avg_pool2d
+from e4s2024_torch.parallel import spatial
 
 _NETS = {"lpips": LPIPS, "arcface": ArcFaceBackbone, "parser": ParsingUNet}
 
@@ -49,7 +56,7 @@ class ReconCriterion:
     def __call__(self, recon: torch.Tensor, img: torch.Tensor):
         loss, metrics = 0.0, {}
         if self.l2_lambda > 0:
-            l2 = (recon - img).square().mean()
+            l2 = spatial.mean((recon - img).square())
             loss = loss + self.l2_lambda * l2
             metrics["loss_l2"] = l2
         recon, img = recon.float(), img.float()
@@ -61,7 +68,9 @@ class ReconCriterion:
             arcface = self.nets["arcface"]
 
             def feats(x):
-                return arcface(id_loss_crop(x), multi_scale=True)
+                crop = id_loss_crop(x)
+                with spatial.suspended():
+                    return arcface(crop, multi_scale=True)
 
             idl = feature_cosine_loss(feats(recon), feats(img))
             loss = loss + self.id_lambda * idl
@@ -70,9 +79,9 @@ class ReconCriterion:
             parser = self.nets["parser"]
 
             def pfeats(x):
-                if x.shape[2] != 512:
-                    x = adaptive_avg_pool2d(x, (512, 512))
-                return parser.extract_feats(x)
+                x = whole_image(x, 512)
+                with spatial.suspended():
+                    return parser.extract_feats(x)
 
             fpl = feature_cosine_loss(pfeats(recon), pfeats(img))
             loss = loss + self.face_parsing_lambda * fpl

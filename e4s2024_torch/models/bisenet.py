@@ -183,3 +183,26 @@ def bicubic_downsample(x: torch.Tensor, factor: int) -> torch.Tensor:
     x = F.pad(x, [p0, p1, 0, 0], mode="reflect")
     return F.conv2d(x, taps.view(1, 1, 1, size).expand(c, 1, 1, size),
                     stride=(1, factor), groups=c)
+
+
+SEG_MEAN, SEG_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+
+
+def face_parsing(net: BiSeNet, img01: torch.Tensor) -> torch.Tensor:
+    """Parse faces with a BiSeNet (its device and dtype): (B, 3, H, W) in
+    [0, 1] -> (B, 512, 512) int64 19-class map, as FaceParser.forward
+    (reference face_parsing_demo.py:162-171): bicubic downsample (H >= 512)
+    or bilinear upsample (H < 512) to 512^2, normalise, the main head,
+    argmax."""
+    from e4s2024_torch.ops.resize import resize_bilinear
+
+    h = img01.shape[-2]
+    if h >= 512:
+        x = torch.clamp(bicubic_downsample(img01, h // 512), 0.0, 1.0)
+    else:
+        x = resize_bilinear(img01, (512, 512))
+    mean = torch.tensor(SEG_MEAN, device=x.device).view(1, 3, 1, 1)
+    std = torch.tensor(SEG_STD, device=x.device).view(1, 3, 1, 1)
+    p = next(net.parameters())
+    logits, _, _ = net(((x - mean) / std).to(p.device, p.dtype), aux=False)
+    return torch.argmax(logits, dim=1)

@@ -8,6 +8,14 @@ Counterpart of `e4s2024_tpu/models/encoders.py` in NCHW, with the
 reference's state-dict names (`input_layer.{0,2}`,
 `body.{i}.res_layer.{1,2,3,5}`, `body.{i}.shortcut_layer.0`; SEAN's
 `model.{1,4,7,10}`, `style_module.1`, `structure_module.{0,3,6}`).
+
+Under a height split (`parallel.spatial`, the trainer's `sp` axis)
+FSEncoderPSP holds only its rows of every activation: its convolutions
+fetch their halo rows, InstanceNorm's mean and variance, the SE pool's
+mean and `masked_average_pool`'s sums and areas are sums over the split
+(autograd sums their gradients back), and the style vectors come out the
+same on every rank. FSEncoderSEAN is not split (its reflection pads are
+not ported to slabs) and raises under a split.
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from e4s2024_torch.ops.resize import resize_nearest
+from e4s2024_torch.parallel import spatial
+from e4s2024_torch.parallel.spatial import Conv2d, MaxPool2d
 
 
 class _InstanceNorm(torch.autograd.Function):
@@ -43,7 +53,11 @@ class _InstanceNorm(torch.autograd.Function):
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """InstanceNorm2d(affine=False): each (sample, channel) over H, W."""
+    """InstanceNorm2d(affine=False): each (sample, channel) over H, W (under
+    a height split over the whole height, through autograd's own
+    backward of the sums)."""
+    if spatial.active() is not None:
+        return spatial.instance_norm(x, eps)
     if torch.is_grad_enabled() and x.requires_grad:
         return _InstanceNorm.apply(x, eps)
     return F.instance_norm(x, eps=eps)
@@ -63,7 +77,7 @@ class SEModule(nn.Module):
         self.fc2 = nn.Conv2d(channels // reduction, channels, 1, bias=False)
 
     def forward(self, x):
-        s = x.mean(dim=(2, 3), keepdim=True)
+        s = spatial.spatial_mean(x)
         s = self.fc2(torch.relu(self.fc1(s)))
         return x * torch.sigmoid(s)
 
@@ -75,15 +89,15 @@ class BottleneckIRSE(nn.Module):
     def __init__(self, in_channel: int, depth: int, stride: int):
         super().__init__()
         if in_channel == depth:
-            self.shortcut_layer = nn.MaxPool2d(1, stride)
+            self.shortcut_layer = MaxPool2d(1, stride)
         else:
             self.shortcut_layer = nn.Sequential(
-                nn.Conv2d(in_channel, depth, 1, stride, bias=False), InstanceNorm())
+                Conv2d(in_channel, depth, 1, stride, bias=False), InstanceNorm())
         self.res_layer = nn.Sequential(
             InstanceNorm(),
-            nn.Conv2d(in_channel, depth, 3, 1, 1, bias=False),
+            Conv2d(in_channel, depth, 3, 1, 1, bias=False),
             nn.PReLU(depth),
-            nn.Conv2d(depth, depth, 3, stride, 1, bias=False),
+            Conv2d(depth, depth, 3, stride, 1, bias=False),
             InstanceNorm(),
             SEModule(depth, 16),
         )
@@ -105,11 +119,12 @@ def rgi_body_plan(num_units: tuple = (3, 4, 14, 3)) -> list[tuple[int, int]]:
 def masked_average_pool(feats: torch.Tensor, segmap: torch.Tensor) -> torch.Tensor:
     """Per-region mean of feature vectors. feats: (B, C, H, W); segmap:
     (B, K, Hm, Wm) one-hot, resized nearest to (H, W). Returns (B, K, C);
-    an empty region gives zeros (reference psp_encoders.py:368-373)."""
+    an empty region gives zeros (reference psp_encoders.py:368-373). Under
+    a height split the sums and areas are sums over the split."""
     seg = resize_nearest(segmap, feats.shape[-2:])
     seg = (seg > 0).to(feats.dtype)
-    summed = torch.einsum("bchw,bkhw->bkc", feats, seg)
-    area = seg.sum(dim=(2, 3))[..., None]
+    summed = spatial.all_reduce(torch.einsum("bchw,bkhw->bkc", feats, seg))
+    area = spatial.all_reduce(seg.sum(dim=(2, 3)))[..., None]
     return torch.where(area > 0, summed / torch.clamp(area, min=1.0),
                        torch.zeros((), dtype=feats.dtype, device=feats.device))
 
@@ -128,7 +143,7 @@ class FSEncoderPSP(nn.Module):
         n = tuple(num_units)
         self.taps = (n[0] + n[1] - 1, n[0] + n[1] + n[2] - 1, sum(n) - 1)
         self.input_layer = nn.Sequential(
-            nn.Conv2d(3, 64, 3, 1, 1, bias=False), InstanceNorm(), nn.PReLU(64))
+            Conv2d(3, 64, 3, 1, 1, bias=False), InstanceNorm(), nn.PReLU(64))
         units, in_ch = [], 64
         for depth, stride in rgi_body_plan(n):
             units.append(BottleneckIRSE(in_ch, depth, stride))
@@ -172,5 +187,7 @@ class FSEncoderSEAN(nn.Module):
             nn.Conv2d(512, 512, 3, 2, 1), *_in_lrelu())
 
     def forward(self, x, segmap):
+        if spatial.active() is not None:
+            raise NotImplementedError("FSEncoderSEAN does not run under a height split")
         h = self.model(x)
         return masked_average_pool(self.style_module(h), segmap), self.structure_module(h)

@@ -6,12 +6,23 @@ Counterpart of `e4s2024_tpu/models/lpips.py` in NCHW. torchvision's
 channels, squared differences weighted by the 1x1 "lin" heads, averaged
 over space and summed. State-dict names: `features.{0,3,6,8,10}.*` and
 `lin{i}.model.1.weight`, the ones `convert_lpips` reads. Input in [-1, 1].
+
+Under a height split (`parallel.spatial`) the inputs are slabs of rows
+and each rank holds only its rows of every feature: the 11x11 stride-4
+convolution, the 3x3 stride-2 max pools and the 5x5 and 3x3 convolutions
+fetch the rows their windows read, and the output rows of a strided
+layer belong to the rank that holds the input row they start from, so
+the feature slabs are uneven (256 rows give 63 after the first
+convolution, 32 and 31 over two ranks); the spatial means are sums over
+the split, and the distance comes out the same on every rank.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from e4s2024_torch.parallel import spatial
 
 # LPIPS input standardisation (reference networks.py:41-44)
 _SHIFT = (-0.030, -0.088, -0.188)
@@ -65,7 +76,37 @@ class LPIPS(nn.Module):
                 feats.append(unit_normalize(x))
         return feats
 
+    def _taps_split(self, x: torch.Tensor) -> list[tuple[torch.Tensor, int]]:
+        """`taps` of a slab of rows: (this rank's rows of each tap, the
+        tap's global height)."""
+        x = (x - self.shift) / self.scale
+        extents = spatial.even_extents(x.shape[-2])
+        feats = []
+        for i, layer in enumerate(self.features):
+            if isinstance(layer, nn.Conv2d):
+                x, extents = spatial.conv2d_rows(x, layer.weight, layer.bias, layer.stride,
+                                                 layer.padding, extents)
+            elif isinstance(layer, nn.MaxPool2d):
+                x, extents = spatial.max_pool2d(x, layer.kernel_size, layer.stride, extents)
+            else:
+                x = layer(x)
+            if i in TAPS:
+                feats.append((unit_normalize(x), extents[-1][1]))
+        return feats
+
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        if spatial.active() is not None:
+            sums, counts = [], []
+            for i, ((a, rows), (b, _)) in enumerate(zip(self._taps_split(x),
+                                                        self._taps_split(y))):
+                # the 1x1 head summed over the slab, as a contraction: a
+                # rank may hold no row of the coarsest taps
+                lin = getattr(self, f"lin{i}").model[1].weight.reshape(-1)
+                sums.append(torch.einsum("bchw,c->b", (a - b) ** 2, lin))
+                counts.append(rows * a.shape[-1])
+            means = spatial.all_reduce(torch.stack(sums)) / torch.tensor(
+                counts, dtype=x.dtype, device=x.device)[:, None]
+            return means.sum() / x.shape[0]
         total = 0.0
         for i, (a, b) in enumerate(zip(self.taps(x), self.taps(y))):
             total = total + getattr(self, f"lin{i}")((a - b) ** 2).mean(dim=(1, 2, 3))

@@ -15,6 +15,7 @@ from torch import nn
 from e4s2024_torch.models.encoders import FSEncoderPSP, FSEncoderSEAN
 from e4s2024_torch.models.stylegan2 import EqualLinear, Generator
 from e4s2024_torch.ops.resize import resize_bilinear
+from e4s2024_torch.parallel import spatial
 
 
 class LocalMLP(nn.Module):
@@ -78,9 +79,10 @@ class RGINet(nn.Module):
     def get_style_vectors(self, img, mask):
         """img: (B, 3, H, W) in [-1, 1], resized bilinear to the encoder's
         input size; mask: (B, K, Hm, Wm) one-hot. Returns ((B, K, 1280),
-        structure_feats)."""
+        structure_feats). Under a height split img, mask and the structure
+        features are slabs of rows."""
         s = self.encoder_input_size
-        return self.encoder(resize_bilinear(img, (s, s)), mask)
+        return self.encoder(resize_bilinear(img, (spatial.local_rows(s), s)), mask)
 
     def cal_style_codes(self, style_vectors):
         """(B, K, 1280) -> (B, K, n_latent, 512) W+ codes (networks.py:223)."""

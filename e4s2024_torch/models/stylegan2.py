@@ -9,6 +9,15 @@ blur and upsample FIR taps are constants of the module, not state.
 
 Latent layout: (B, K, n_latent, 512) per-component W+ codes; layers at or
 past `remaining_layer_idx` use component 0 only (reference model.py:685-688).
+
+Under a height split (`parallel.spatial`, the trainer's `sp` axis) the
+Generator and the Discriminator hold only their rows of every activation:
+ConstantInput keeps its rows of the 4x4 input, the convolutions and FIR
+resamplings fetch their halo rows, and a downsampling ConvLayer runs its
+blur and strided convolution on one window. The Discriminator gathers
+its 4x4 map (the one tensor it holds whole) for the minibatch stddev,
+`final_conv` and `final_linear`, whose logits are then the same on every
+rank of the split.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from torch import nn
 from e4s2024_torch.ops.fused_act import fused_leaky_relu, scaled_leaky_relu
 from e4s2024_torch.ops.modconv import modulated_conv2d, regional_modulated_conv2d
 from e4s2024_torch.ops.upfirdn import blur, make_kernel, upsample_2x
+from e4s2024_torch.parallel import spatial
 
 BLUR_TAPS = (1, 3, 3, 1)
 
@@ -81,8 +91,8 @@ class EqualConv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channel)) if bias else None
 
     def forward(self, x):
-        return nn.functional.conv2d(x, self.weight * self.scale, self.bias,
-                                    stride=self.stride, padding=self.padding)
+        return spatial.conv2d(x, self.weight * self.scale, self.bias,
+                              stride=self.stride, padding=self.padding)
 
 
 class ModulatedConv2d(nn.Module):
@@ -221,6 +231,26 @@ class ConvLayer(nn.Sequential):
             layers.append(FusedLeakyReLU(out_channel) if bias else ScaledLeakyReLU())
         super().__init__(*layers)
 
+    def forward(self, x):
+        if spatial.active() is None or not isinstance(self[0], Blur):
+            return super().forward(x)
+        # split: the blur and the strided convolution on one window of rows,
+        # as one op of taps + k - 1 rows at stride 2 (the blur's own output,
+        # H + 1 rows, does not split); the rows of the blurred window that
+        # read its local row pads are dropped before the convolution
+        blur_layer, conv, *rest = self
+        q0, q1 = blur_layer.pad
+
+        def fn(window):
+            b = blur_layer(window)
+            return conv(b.narrow(-2, q0, b.shape[-2] - q0 - q1))
+
+        taps = blur_layer.kernel.shape[0]
+        out = spatial.window_op(x, fn, taps + conv.weight.shape[-1] - 1, 2, (q0, q1))
+        for layer in rest:
+            out = layer(out)
+        return out
+
 
 class ResBlock(nn.Module):
     """Residual downsampling block (reference model.py:750): two 3x3
@@ -244,7 +274,7 @@ class ConstantInput(nn.Module):
         self.input = nn.Parameter(torch.randn(1, channel, size, size))
 
     def forward(self, batch: int):
-        return self.input.expand(batch, -1, -1, -1)
+        return spatial.own_rows(self.input.expand(batch, -1, -1, -1))
 
 
 class Generator(nn.Module):
@@ -344,7 +374,9 @@ class Discriminator(nn.Module):
     an autograd-aware all-gather (differentiable twice, for R1), the
     stddev is taken over the global grouping, and this rank keeps its own
     rows. Every rank must run each forward and each backward together.
-    Without a group the forward sees only its own batch."""
+    Without a group the forward sees only its own batch. Under a height
+    split the 4x4 map is gathered over the split first (module
+    docstring)."""
 
     def __init__(self, size: int = 1024, channel_multiplier: int = 2,
                  stddev_group: int = 4):
@@ -365,7 +397,11 @@ class Discriminator(nn.Module):
 
     def forward(self, x):
         """x: (B, 3, size, size) in [-1, 1]. Returns (B, 1) logits."""
-        out = self.convs(x)
+        out = spatial.gather_rows(self.convs(x))
+        with spatial.suspended():
+            return self._head(out)
+
+    def _head(self, out):
         b, c, h, w = out.shape
         feats, rank = out, 0
         if self.process_group is not None:

@@ -1,5 +1,6 @@
-"""Compositing on (B, C, H, W) tensors: Laplacian-pyramid blending and soft
-erosion (`e4s2024_tpu/ops/blend.py`, its planar forms).
+"""Compositing on (B, C, H, W) tensors: Laplacian-pyramid blending, soft
+erosion, cv2-style gaussian blur and sharpening, and the facial mask of a
+12-class map (`e4s2024_tpu/ops/blend.py`, in planar form).
 
 The pyramid filters are OpenCV's pyrDown / pyrUp with the REFLECT_101
 border, written as shifted multiply-adds; the soft-erosion cone filter runs
@@ -180,3 +181,39 @@ def blend_with_mask(bottom: torch.Tensor, up: torch.Tensor, up_mask: torch.Tenso
     mask zeroed (reference paste_back_tricks.py:131-148)."""
     m = torch.nan_to_num(up_mask, nan=0.0) * up_ratio
     return bottom * (1.0 - m) + up * m
+
+
+def gaussian_blur(x: torch.Tensor, sigma: float, ksize: int | None = None) -> torch.Tensor:
+    """cv2-style gaussian blur of (B, C, H, W): the separable kernel of
+    `ksize` taps (default 2 round(3 sigma) + 1), REFLECT_101 borders."""
+    if ksize is None:
+        ksize = int(2 * round(3 * sigma) + 1)
+    half = ksize // 2
+    t = np.exp(-0.5 * (np.arange(-half, half + 1) / sigma) ** 2)
+    taps = torch.from_numpy((t / t.sum()).astype(np.float32)).to(x.device, x.dtype)
+    c = x.shape[1]
+    x = F.conv2d(_pad_axis(x, -2, half, half, "reflect"),
+                 taps.view(1, 1, ksize, 1).expand(c, 1, ksize, 1), groups=c)
+    return F.conv2d(_pad_axis(x, -1, half, half, "reflect"),
+                    taps.view(1, 1, 1, ksize).expand(c, 1, 1, ksize), groups=c)
+
+
+def sharpen(x: torch.Tensor, sigma: float = 10.0) -> torch.Tensor:
+    """Unsharp mask: 1.5 x - 0.5 blur(x) (reference paste_back_tricks.py:150)."""
+    return 1.5 * x - 0.5 * gaussian_blur(x, sigma)
+
+
+def facial_mask_from_seg12(seg: torch.Tensor, target_hw: tuple[int, int] | None = None,
+                           classes: tuple[int, ...] = (1, 2, 3, 5, 6, 8, 9)) -> torch.Tensor:
+    """The union of the facial classes of a (B, H, W) integer map as a
+    float mask (B, 1, H', W') in [0, 1], resized bilinear with aligned
+    corners to `target_hw` (reference paste_back_tricks.py:173)."""
+    from e4s2024_torch.ops.resize import resize_bilinear
+
+    mask = torch.zeros(seg.shape, dtype=torch.float32, device=seg.device)
+    for c in classes:
+        mask = mask + (seg == c).float()
+    mask = mask[:, None]
+    if target_hw is not None:
+        mask = resize_bilinear(mask, target_hw, align_corners=True)
+    return mask

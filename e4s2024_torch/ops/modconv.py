@@ -18,6 +18,12 @@ Regional modes:
 
 The shared-weight convolutions are `F.conv2d` / `F.conv_transpose2d`; the
 blur after the transposed convolution is upfirdn2d (kernel K2).
+
+Under a height split (`parallel.spatial`) x and the segmap are slabs of
+rows: the 3x3 convolution fetches one halo row from each neighbour, and
+the up path (transposed convolution, demodulation, blur) runs on a window
+of its input slab with one halo row each side, keeping its output slab's
+rows. K1 and K3 are per pixel and run on the slabs as they are.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch.nn.functional as F
 from e4s2024_torch.ops.modulate import regional_scale
 from e4s2024_torch.ops.resize import resize_nearest
 from e4s2024_torch.ops.upfirdn import blur as fir_blur
+from e4s2024_torch.parallel import spatial
 
 _EPS = 1e-8
 
@@ -59,6 +66,28 @@ def _up_blur(out: torch.Tensor, weight: torch.Tensor,
                     upsample_factor=2)
 
 
+def _up_path(x: torch.Tensor, w: torch.Tensor, weight: torch.Tensor,
+             blur_kernel: torch.Tensor, mid=None) -> torch.Tensor:
+    """The transposed convolution, `mid` (the demodulation: per channel),
+    then the blur. Under a split on a window of input rows: output row Y
+    reads transposed rows Y - q0 .. Y - q0 + taps - 1, and transposed row J
+    input rows i with 0 <= J - 2 i < k."""
+    def run(t):
+        t = _up_conv(t, w)
+        return _up_blur(t if mid is None else mid(t), weight, blur_kernel)
+
+    if spatial.active() is None:
+        return run(x)
+    k, taps = weight.shape[-1], blur_kernel.shape[0]
+    q0 = (taps - 2 - (k - 1) + 1) // 2 + 1
+
+    def span(r0, r1):
+        lo = -((q0 + k - 1 - r0) // 2)
+        return lo, (r1 - 1 - q0 + taps - 1) // 2 + 1, r0 - 2 * lo
+
+    return spatial.halo_op(x, run, span, 2 * x.shape[-2] * spatial.parts())
+
+
 def _mod_conv_core(x, weight, style, demodulate, up, down, blur_kernel):
     """Shared-weight modulated conv. x: (B, Cin, H, W); style: (B, Cin) or
     None (no modulation). Returns (B, Cout, H', W')."""
@@ -72,12 +101,14 @@ def _mod_conv_core(x, weight, style, demodulate, up, down, blur_kernel):
         return out * _demod_coeff(weight, style)[:, :, None, None]
 
     if up:
-        return _up_blur(demod(_up_conv(xm, w)), weight, blur_kernel)
+        return _up_path(xm, w, weight, blur_kernel, demod)
     if down:
+        if spatial.active() is not None:
+            raise NotImplementedError("a modulated downsample is not split (E4S runs none)")
         p = blur_kernel.shape[0] - 2 + (k - 1)
         xm = fir_blur(xm.contiguous(), blur_kernel, pad=((p + 1) // 2, p // 2))
         return demod(F.conv2d(xm, w, stride=2))
-    return demod(F.conv2d(xm, w, padding=k // 2))
+    return demod(spatial.conv2d(xm, w, padding=k // 2))
 
 
 def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, style: torch.Tensor,
@@ -116,9 +147,9 @@ def regional_modulated_conv2d(x: torch.Tensor, weight: torch.Tensor,
         xs = regional_scale(x.contiguous(), seg_in, styles.contiguous())
         w = _he_scale(weight) * weight
         if up:
-            out = _up_blur(_up_conv(xs, w), weight, blur_kernel)
+            out = _up_path(xs, w, weight, blur_kernel)
         else:
-            out = F.conv2d(xs, w, padding=k_sz // 2)
+            out = spatial.conv2d(xs, w, padding=k_sz // 2)
         if demodulate:
             demod = _demod_coeff(weight, styles).contiguous()  # (B, K, Cout)
             out = regional_scale(out.contiguous(), seg_out, demod)

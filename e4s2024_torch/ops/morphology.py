@@ -1,6 +1,6 @@
 """Grayscale dilation and erosion with a flat structuring element on
-(B, C, H, W) masks (`e4s2024_tpu/ops/morphology.py`, whose `dilation` and
-`erosion` take NHWC). Out-of-image samples are ignored, as kornia's
+(B, C, H, W) masks (`e4s2024_tpu/ops/morphology.py`, whose `dilation`,
+`erosion`, `opening` and `closing` take NHWC). Out-of-image samples are ignored, as kornia's
 'geodesic' border does; erosion is the negated dilation of the negated
 mask."""
 
@@ -26,3 +26,13 @@ def dilation(x: torch.Tensor, size: int) -> torch.Tensor:
 def erosion(x: torch.Tensor, size: int) -> torch.Tensor:
     """Min over a size x size flat structuring element. x: (B, C, H, W)."""
     return -dilation_planar(-x, size)
+
+
+def opening(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Erosion, then dilation. x: (B, C, H, W)."""
+    return dilation(erosion(x, size), size)
+
+
+def closing(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Dilation, then erosion. x: (B, C, H, W)."""
+    return erosion(dilation(x, size), size)

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from e4s2024_torch import kernels
 from e4s2024_torch.kernels.build import library
+from e4s2024_torch.parallel import spatial
 
 
 def make_kernel(k) -> torch.Tensor:
@@ -263,6 +264,19 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
     return _UpFirDn2d.apply(x, kernel, up, down, tuple(pad), (oh, ow))
 
 
+def _split_aware(x: torch.Tensor, kernel: torch.Tensor, up: int, down: int,
+                 pad: tuple[int, int]) -> torch.Tensor:
+    """`upfirdn2d`, or under a height split (`parallel.spatial`) the same
+    launch on a window of rows that carries its halo, its own rows kept:
+    K2 takes one leading pad for both axes, so the window's row pads fall
+    on rows it already holds."""
+    if spatial.active() is None:
+        return upfirdn2d(x, kernel, up=up, down=down, pad=pad)
+    return spatial.upfirdn_rows(
+        x, lambda w: upfirdn2d(w, kernel, up=up, down=down, pad=pad),
+        kernel.shape[0], up, down, pad)
+
+
 def _resample_pads(kernel_size: int, factor: int, up: bool) -> tuple[int, int]:
     p = kernel_size - factor
     if up:
@@ -273,13 +287,13 @@ def _resample_pads(kernel_size: int, factor: int, up: bool) -> tuple[int, int]:
 def upsample_2x(x: torch.Tensor, kernel: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """FIR-interpolated upsample (reference model.py:34 `Upsample`)."""
     pad = _resample_pads(kernel.shape[0], factor, up=True)
-    return upfirdn2d(x, kernel * (factor ** 2), up=factor, down=1, pad=pad)
+    return _split_aware(x, kernel * (factor ** 2), factor, 1, pad)
 
 
 def downsample_2x(x: torch.Tensor, kernel: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Anti-aliased downsample (reference model.py:56 `Downsample`)."""
     pad = _resample_pads(kernel.shape[0], factor, up=False)
-    return upfirdn2d(x, kernel, up=1, down=factor, pad=pad)
+    return _split_aware(x, kernel, 1, factor, pad)
 
 
 def blur(x: torch.Tensor, kernel: torch.Tensor, pad: tuple[int, int],
@@ -287,4 +301,4 @@ def blur(x: torch.Tensor, kernel: torch.Tensor, pad: tuple[int, int],
     """Plain FIR blur with explicit pads (reference model.py:78 `Blur`)."""
     if upsample_factor > 1:
         kernel = kernel * (upsample_factor ** 2)
-    return upfirdn2d(x, kernel, up=1, down=1, pad=pad)
+    return _split_aware(x, kernel, 1, 1, pad)

@@ -20,19 +20,26 @@ whole global batch, as JAX's one controller does:
 - `broadcast_parameters` makes every rank start from rank 0's weights.
 
 A computation that couples the rows of a batch (the Discriminator's
-minibatch stddev) gathers them itself, through the autograd-aware
-`torch.distributed.nn.functional.all_gather`, so that its gradients reach
-every rank's rows.
+minibatch stddev) gathers them itself, through `gather_rows_autograd`, so
+that its gradients reach every rank's rows.
 
 Nothing on the host tells a process about the others: the caller gives the
 world size, the rank and a rendezvous (a `tcp://` or `file://` address or
-a `torch.distributed.Store`). The JAX package's 2-D `(dp, sp)` mesh, which
-also shards image height with GSPMD's halo exchange, has no counterpart.
+a `torch.distributed.Store`).
+
+The JAX package's 2-D `(dp, sp)` mesh (`make_mesh_2d`) splits the batch
+over `dp` and image height over `sp`; its counterpart is
+`make_process_grid(dp, sp)`, a `ProcessGrid` of the world's ranks (rank
+d sp + s at row d, column s, JAX's `devs.reshape(dp, sp)`) with a group
+for each axis, and `shard_rows_spatial` places a global batch as
+`P("dp", "sp")` does. `as_process_grid` reads a plain group of W ranks as
+the (W, 1) grid. The height split itself is `parallel/spatial.py`.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from dataclasses import dataclass
+from typing import Any, Iterable
 
 import torch
 import torch.distributed as dist
@@ -64,6 +71,77 @@ def make_process_group(world_size: int = 1, rank: int = 0, *, device=None,
                                 init_method=init_method, store=store,
                                 world_size=world_size, rank=rank)
     return dist.group.WORLD
+
+
+@dataclass(frozen=True)
+class ProcessGrid:
+    """A `(dp, sp)` grid of the world's ranks: this rank's row `dp_index`
+    and column `sp_index`, the group of its row (the ranks that split its
+    rows of the batch by height: `sp_group`), of its column (the ranks
+    that hold the other rows of the batch at the same height: `dp_group`)
+    and of the whole world."""
+
+    dp: int
+    sp: int
+    dp_index: int
+    sp_index: int
+    dp_group: Any
+    sp_group: Any
+    world: Any
+
+    @property
+    def split(self):
+        """The height split (`parallel.spatial.RowSplit`) of this rank."""
+        from e4s2024_torch.parallel.spatial import RowSplit
+
+        return RowSplit(self.sp_group, self.sp, self.sp_index)
+
+
+def make_process_grid(dp: int, sp: int) -> ProcessGrid:
+    """The `(dp, sp)` grid over the default process group (from
+    `make_process_group`), the counterpart of `make_mesh_2d(dp, sp)`:
+    rank d * sp + s sits at row d, column s. Every rank must call it, in
+    the same order as any other group it makes. A world of other than
+    dp * sp ranks raises, as `make_mesh_2d` raises for too few devices."""
+    if dp < 1 or sp < 1:
+        raise ValueError(f"a grid of {dp} x {sp}")
+    world = dist.get_world_size()
+    if world != dp * sp:
+        raise RuntimeError(f"requested a {dp}x{sp} grid but the world has {world} rank(s)")
+    rank = dist.get_rank()
+    rows = [dist.new_group([d * sp + s for s in range(sp)]) for d in range(dp)]
+    cols = [dist.new_group([d * sp + s for d in range(dp)]) for s in range(sp)]
+    d, s = divmod(rank, sp)
+    return ProcessGrid(dp, sp, d, s, dp_group=cols[s], sp_group=rows[d],
+                       world=dist.group.WORLD)
+
+
+def as_process_grid(group) -> ProcessGrid:
+    """`group` as a grid: a `ProcessGrid` as it is, and a plain group of W
+    ranks (None: one rank) as the (W, 1) grid, data parallelism alone."""
+    if isinstance(group, ProcessGrid):
+        return group
+    rank, world = rank_and_world(group)
+    return ProcessGrid(world, 1, rank, 0, dp_group=group, sp_group=None, world=group)
+
+
+def shard_rows_spatial(x: torch.Tensor, grid: ProcessGrid,
+                       heights: Iterable[int] = ()) -> torch.Tensor:
+    """This rank's block of a global (B, C, H, W) batch, as `P("dp", "sp")`
+    places it: rows [d B / dp, (d + 1) B / dp) of the batch and rows
+    [s H / sp, (s + 1) H / sp) of the height. An indivisible B, or an H
+    (or any of `heights`, the smaller scales that the nets reach) that sp
+    does not divide, raises ValueError."""
+    b, h = x.shape[0], x.shape[2]
+    if b % grid.dp:
+        raise ValueError(f"a batch of {b} rows does not split over {grid.dp} dp ranks")
+    for height in (h, *heights):
+        if height % grid.sp:
+            raise ValueError(f"a height of {height} rows does not split over {grid.sp} "
+                             "sp ranks")
+    nb, nh = b // grid.dp, h // grid.sp
+    return x[grid.dp_index * nb:(grid.dp_index + 1) * nb, :,
+             grid.sp_index * nh:(grid.sp_index + 1) * nh]
 
 
 def rank_and_world(group) -> tuple[int, int]:
@@ -99,10 +177,20 @@ def gather_rows_autograd(x: torch.Tensor, group) -> torch.Tensor:
     """`gather_rows` through autograd: the gradient of each block returns to
     its rank, summed over the ranks' losses, and it is itself
     differentiable (R1's double backward). Every rank must take part in
-    each backward."""
-    from torch.distributed.nn.functional import all_gather
+    each backward. Built on the differentiable all-reduce of
+    `parallel.spatial` (each rank's block in its slot of a zero buffer,
+    summed): gloo carries it on CUDA tensors, and it serves a subgroup
+    (the `dp` axis of a grid), where the backward of
+    `torch.distributed.nn.functional.all_gather` names global rank 0."""
+    from e4s2024_torch.parallel.spatial import all_reduce_group
 
-    return torch.cat(all_gather(x, group=group))
+    rank, world = rank_and_world(group)
+    if world == 1:
+        return x
+    b = x.shape[0]
+    slots = torch.cat([x.new_zeros((rank * b, *x.shape[1:])), x,
+                       x.new_zeros(((world - rank - 1) * b, *x.shape[1:]))])
+    return all_reduce_group(slots, group)
 
 
 # the largest flat buffer a collective over many tensors builds, in
@@ -135,17 +223,22 @@ def _flat_collective(tensors: list[torch.Tensor], op) -> None:
 
 
 @torch.no_grad()
-def average_gradients(params: Iterable[torch.Tensor], group) -> None:
-    """Replace each parameter's `.grad` by its mean over the group, one
-    all-reduce a bucket. Parameters without a gradient are skipped: every
-    rank runs the same graph, so they are the same on every rank."""
+def average_gradients(params: Iterable[torch.Tensor], group, divisor: int | None = None
+                      ) -> None:
+    """Replace each parameter's `.grad` by its sum over the group divided by
+    `divisor` (default the group's size: the mean), one all-reduce a
+    bucket; over a `(dp, sp)` grid's world with divisor dp, the sum over
+    the height split of the mean over dp. Parameters without a gradient
+    are skipped: every rank runs the same graph, so they are the same on
+    every rank."""
     if group is None:
         return
-    world = dist.get_world_size(group)
+    world = dist.get_world_size(group) if divisor is None else divisor
 
     def mean(flat):
         dist.all_reduce(flat, group=group)
-        flat /= world
+        if world != 1:
+            flat /= world
 
     _flat_collective([p.grad for p in params if p.grad is not None], mean)
 

@@ -1,8 +1,10 @@
 """Swapped segmentation and style-vector mixing, batched.
 
-Counterpart of `swap_head_mask` and `swap_comp_style_vector` in
+Counterpart of `swap_head_mask`, `swap_comp_style_vector` and the two
+earlier merges (`swap_head_mask_consider_glass`,
+`swap_head_mask_target_bg_dilation`) in
 `e4s2024_tpu/pipelines/mask_merge.py` (reference
-swap_face_fine/swap_face_mask.py:194-367). The JAX package maps the mask
+swap_face_fine/swap_face_mask.py:93-438). The JAX package maps the mask
 merge over the batch; here every reduction runs per sample directly.
 
 Class ids: 0 bg, 1 lip, 2 eyebrow, 3 eye, 4 hair, 5 nose, 6 skin, 7 ear,
@@ -96,3 +98,47 @@ def swap_comp_style_vector(target_sv: torch.Tensor, source_sv: torch.Tensor,
     src_has_teeth = source_sv[:, 9].sum(dim=-1, keepdim=True) != 0
     sv[:, 9] = torch.where(src_has_teeth, sv[:, 9], target_sv[:, 9])
     return sv
+
+
+def swap_head_mask_consider_glass(source: torch.Tensor, target: torch.Tensor):
+    """Earlier-generation merge (reference swap_face_mask.py:93-154
+    `swap_head_mask_revisit_considerGlass`): the source face painted only
+    where the target is not background, source hair over target hair.
+
+    source, target: (B, H, W) integer maps. Returns (mask, hole_map (255
+    where a hole was filled with skin, else 0), the first eyebrow row of
+    each mask (B,), 0 without one)."""
+    res = torch.zeros_like(target)
+    res = torch.where(target == 0, 99, res)
+    res = torch.where(target == 8, 8, res)
+    for c in (7, 11, 1, 2, 3, 5, 6, 9):
+        res = torch.where((source == c) & (res != 99), c, res)
+    res = torch.where(target == 10, 10, res)
+    res = torch.where(source == 4, 4, res)
+    hole_map = torch.where(res == 0, 255, 0)
+    res = torch.where(res == 0, 6, res)
+    res = torch.where(res == 99, 0, res)
+    h = target.shape[-2]
+    rows = torch.arange(h, device=target.device)[None, :, None]
+    brow = res == 2
+    first = torch.where(brow, rows, h).amin(dim=(1, 2))
+    return res, hole_map, torch.where(brow.any(dim=(1, 2)), first, 0)
+
+
+def swap_head_mask_target_bg_dilation(source: torch.Tensor, target: torch.Tensor,
+                                      radius: int = 3, iters: int = 7) -> torch.Tensor:
+    """Dilated-target-background merge (reference swap_face_mask.py:370-438):
+    the target's non-face classes grown `iters` times by a (2 radius + 1)
+    square before the source face is painted. source, target: (B, H, W)."""
+    from e4s2024_torch.ops.morphology import dilation
+
+    bg_vals = torch.where(_is_bg(target), target, 1)
+    m = torch.where(bg_vals == 0, 99, bg_vals).float()[:, None]
+    for _ in range(iters):
+        m = dilation(m, 2 * radius + 1)
+    res = m[:, 0].to(target.dtype)
+    res = torch.where(res == 99, 0, res)
+    for c in (1, 2, 3, 5, 6, 9):
+        res = torch.where(source == c, c, res)
+    res = torch.where(target == 4, 4, res)
+    return torch.where(target == 10, 10, res)

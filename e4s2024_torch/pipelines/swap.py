@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from e4s2024_torch import resolve_device
 from e4s2024_torch.convert import as_tensors, drop_generator_buffers
 from e4s2024_torch.data.labels import FFHQ_TO_12, NUM_SEG_CLASSES, map_labels
-from e4s2024_torch.models.bisenet import BiSeNet, bicubic_downsample
+from e4s2024_torch.models.bisenet import SEG_MEAN, SEG_STD, BiSeNet, bicubic_downsample
 from e4s2024_torch.models.rgi import RGINet, fsencoder_type_of
 from e4s2024_torch.ops.blend import laplacian_pyramid_blend_planar, soft_erosion_planar
 from e4s2024_torch.ops.morphology import dilation_planar
@@ -44,8 +44,6 @@ from e4s2024_torch.pipelines.alignment import (
     quad_from_cxy, warp_perspective)
 from e4s2024_torch.pipelines.mask_merge import swap_comp_style_vector, swap_head_mask
 
-_SEG_MEAN = (0.485, 0.456, 0.406)
-_SEG_STD = (0.229, 0.224, 0.225)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -113,8 +111,8 @@ class FaceSwapper:
             net.to(device=self.device, dtype=self.dtype).eval().requires_grad_(False)
         keep = set(config.keep_target_components)
         self._comp = [c for c in range(config.num_seg_cls) if c not in keep]
-        self._seg_mean = torch.tensor(_SEG_MEAN, device=self.device).view(1, 3, 1, 1)
-        self._seg_std = torch.tensor(_SEG_STD, device=self.device).view(1, 3, 1, 1)
+        self._seg_mean = torch.tensor(SEG_MEAN, device=self.device).view(1, 3, 1, 1)
+        self._seg_std = torch.tensor(SEG_STD, device=self.device).view(1, 3, 1, 1)
 
     # ---------------- stages ----------------
 

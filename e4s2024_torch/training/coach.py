@@ -13,12 +13,24 @@
   tensors do not require grad and get no optimizer state.
 - Adam (or Ranger) with optax's rules, the learning rate x0.1 at
   `lr_decay_step` updates of each optimizer (`training/optim.py`).
-- Data parallelism, JAX's `Coach(mesh=make_mesh(w))`: with a process
-  group every step takes the global batch, each rank runs its contiguous
-  share of the rows (`parallel.ddp.shard_rows`, `P("dp")`), the
-  Discriminator's minibatch stddev gathers its features over the group
+- Data parallelism, JAX's `Coach(mesh=make_mesh(w))`: a process group
+  of w ranks is the (w, 1) grid below (`parallel.ddp.as_process_grid`):
+  every step takes the global batch, each rank runs its contiguous share
+  of the rows (`P("dp")`), the Discriminator's minibatch stddev gathers its features over the group
   (the global batch's stddev, as JAX's), and the gradients are averaged
   over the group before each update; the weights start from rank 0's.
+- The `(dp, sp)` grid, JAX's `Coach(mesh=make_mesh_2d(dp, sp))`: with a
+  `parallel.ddp.ProcessGrid` every step takes the global batch, each rank
+  keeps its block of rows over `dp` and of image height over `sp` (JAX's
+  `P("dp", "sp")`; an indivisible height, at any scale the nets reach,
+  raises), and the step runs under the grid's height split
+  (`parallel/spatial.py`): the generator, the encoder, the Discriminator
+  and LPIPS hold only their rows; ArcFace's and the parser's inputs and
+  the Discriminator's 4x4 map are gathered whole. Losses and metrics are
+  whole on every rank of the split; each rank runs its backward from 1/sp
+  of the loss, and the gradients are summed over the world and divided by
+  dp (the sum over `sp` of the mean over `dp`). EMA runs on every rank;
+  rank 0 of the world writes the checkpoints.
 - Checkpoints are torch files with the JAX package's keys (`step`,
   `params`, `buffers`, `ema_params`, `d_params`, `g_opt`, `d_opt`).
 
@@ -46,8 +58,10 @@ from e4s2024_torch.losses.losses import adv_d_loss, adv_g_loss, r1_penalty
 from e4s2024_torch.losses.recon import ReconCriterion
 from e4s2024_torch.models.rgi import RGINet
 from e4s2024_torch.models.stylegan2 import Discriminator
-from e4s2024_torch.parallel.ddp import (average_gradients, broadcast_parameters,
-                                        mean_over_group, shard_rows)
+from e4s2024_torch.parallel import spatial
+from e4s2024_torch.parallel.ddp import (as_process_grid, average_gradients,
+                                        broadcast_parameters, mean_over_group,
+                                        shard_rows_spatial)
 from e4s2024_torch.training import optim
 from e4s2024_torch.utils.checkpoint import load_pytree, save_pytree
 
@@ -149,7 +163,9 @@ class Coach:
     `loss_params` may hold "lpips", "arcface" and "parser" entries (the
     port's modules or their state dicts); a missing one disables its term.
     `process_group` (from `parallel.ddp.make_process_group`) runs the steps
-    data-parallel over global batches; `device` defaults to CUDA."""
+    data-parallel over global batches, a `ProcessGrid` (from
+    `make_process_grid`) over its `(dp, sp)` grid; `device` defaults to
+    CUDA."""
 
     def __init__(self, cfg: TrainConfig, loss_params: Mapping | None = None, *,
                  process_group=None, device=None):
@@ -157,7 +173,11 @@ class Coach:
             raise ValueError(f"optim_name {cfg.optim_name!r}: 'adam' or 'ranger'")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.group = process_group
+        # the world (weights, gradients, checkpoints), the dp axis (the
+        # stddev's batch, metrics) and the height split
+        self.grid = as_process_grid(process_group)
+        self.group, self.dp_group = self.grid.world, self.grid.dp_group
+        self.split = self.grid.split
         self.criterion = ReconCriterion(
             loss_params or {}, lpips_lambda=cfg.lpips_lambda, id_lambda=cfg.id_lambda,
             face_parsing_lambda=cfg.face_parsing_lambda, l2_lambda=cfg.l2_lambda,
@@ -244,17 +264,21 @@ class Coach:
     # ---------------- steps ----------------
 
     def _local(self, state: CoachState, *batch: torch.Tensor) -> tuple:
-        """This rank's rows of a global batch. Under a group the first step
-        after a state's weights were set gives its nets rank 0's weights,
-        and the Discriminator joins the group for its minibatch stddev."""
-        if self.group is None:
-            return batch
-        state.disc.process_group = self.group
+        """This rank's block of a global batch: its rows over dp and its
+        rows of their height over sp. The first step after a state's
+        weights were set gives its nets rank 0's weights, and the
+        Discriminator joins the dp group for its minibatch stddev."""
+        grid = self.grid
+        state.disc.process_group = self.dp_group if grid.dp > 1 else None
         for module in (state.net, state.disc):
             if module not in self._synced:
                 broadcast_parameters(module, self.group)
                 self._synced.add(module)
-        return tuple(shard_rows(x, self.group) for x in batch)
+        enc = self.cfg.encoder_input_size
+        return tuple(shard_rows_spatial(x, grid, (4, enc, enc // 16)) for x in batch)
+
+    def _average_gradients(self, params) -> None:
+        average_gradients(params, self.group, self.grid.dp)
 
     def _recon(self, net: RGINet, img, onehot):
         """The G step's forward, image only; under `remat` the whole forward
@@ -279,20 +303,21 @@ class Coach:
         for p in d_params:
             p.requires_grad_(False)
         try:
-            recon = self._recon(state.net, img, onehot)
-            loss, metrics = self.criterion(recon, img)
-            if cfg.adv_lambda > 0 and cfg.train_D:
-                adv = adv_g_loss(state.disc(recon))
-                loss = loss + cfg.adv_lambda * adv
-                metrics["loss_g_adv"] = adv
-            metrics["loss"] = loss
-            for p in params.values():
-                p.grad = None
-            loss.backward()
+            with spatial.row_split(self.split):
+                recon = self._recon(state.net, img, onehot)
+                loss, metrics = self.criterion(recon, img)
+                if cfg.adv_lambda > 0 and cfg.train_D:
+                    adv = adv_g_loss(state.disc(recon))
+                    loss = loss + cfg.adv_lambda * adv
+                    metrics["loss_g_adv"] = adv
+                metrics["loss"] = loss
+                for p in params.values():
+                    p.grad = None
+                spatial.share(loss).backward()
         finally:
             for p, flag in zip(d_params, flags):
                 p.requires_grad_(flag)
-        average_gradients([p for k, p in params.items() if self._mask[k]], self.group)
+        self._average_gradients([p for k, p in params.items() if self._mask[k]])
         grads = {k: p.grad for k, p in params.items() if self._mask[k]}
         updates, state.g_opt = self._g_tx.update(grads, state.g_opt, params)
         optim.apply_updates(params, updates)
@@ -311,22 +336,23 @@ class Coach:
         rank's batch means)."""
         cfg = self.cfg
         img, onehot = self._local(state, img, onehot)
-        with torch.no_grad():
-            recon = state.net(img, onehot, regional_mode=cfg.regional_mode)[0]
-        disc = state.disc
-        fake_pred, real_pred = disc(recon), disc(img)
-        loss = adv_d_loss(real_pred, fake_pred)
-        metrics = {"d_loss": loss, "real_score": real_pred.mean(),
-                   "fake_score": fake_pred.mean()}
-        if with_r1:
-            r1 = r1_penalty(disc, img)
-            loss = loss + cfg.r1_lambda / 2 * r1 * max(cfg.d_reg_every, 1)
-            metrics["r1_loss"] = r1
         d_params = state.d_params
-        for p in d_params.values():
-            p.grad = None
-        loss.backward()
-        average_gradients(d_params.values(), self.group)
+        with spatial.row_split(self.split):
+            with torch.no_grad():
+                recon = state.net(img, onehot, regional_mode=cfg.regional_mode)[0]
+            disc = state.disc
+            fake_pred, real_pred = disc(recon), disc(img)
+            loss = adv_d_loss(real_pred, fake_pred)
+            metrics = {"d_loss": loss, "real_score": real_pred.mean(),
+                       "fake_score": fake_pred.mean()}
+            if with_r1:
+                r1 = r1_penalty(disc, img)
+                loss = loss + cfg.r1_lambda / 2 * r1 * max(cfg.d_reg_every, 1)
+                metrics["r1_loss"] = r1
+            for p in d_params.values():
+                p.grad = None
+            spatial.share(loss).backward()
+        self._average_gradients(d_params.values())
         grads = {k: p.grad for k, p in d_params.items()}
         updates, state.d_opt = self._d_tx.update(grads, state.d_opt, d_params)
         optim.apply_updates(d_params, updates)
@@ -346,7 +372,7 @@ class Coach:
             return {}
         names = list(metrics)
         values = torch.stack([metrics[k].float() for k in names])
-        return dict(zip(names, mean_over_group(values, self.group).cpu().tolist()))
+        return dict(zip(names, mean_over_group(values, self.dp_group).cpu().tolist()))
 
     def fit(self, batches: Iterable, state: CoachState, steps: int,
             callback: Callable[[int, dict], None] | None = None, *,
@@ -396,18 +422,18 @@ class Coach:
         coach.py:570-622). Pass the same iterator again to continue it."""
         it = iter(batches)
         losses = []
-        with torch.no_grad():
+        with torch.no_grad(), spatial.row_split(self.split):
             for _ in range(steps):
                 img, onehot = self._local(state, *self._as_device(*next(it)))
                 recon = state.net(img, onehot, regional_mode=self.cfg.regional_mode)[0]
                 losses.append(self.criterion(recon, img)[0])
-        return float(mean_over_group(torch.stack(losses).mean().reshape(1), self.group))
+        return float(mean_over_group(torch.stack(losses).mean().reshape(1), self.dp_group))
 
     # ---------------- checkpointing ----------------
 
     def save_checkpoint(self, path: str, state: CoachState) -> None:
         """The state as one torch file (`utils.checkpoint.save_pytree`); on
-        rank 0 only under a process group."""
+        rank 0 (of the world) only under a process group or grid."""
         if self.group is not None and torch.distributed.get_rank(self.group) != 0:
             return
         net = state.net.state_dict()

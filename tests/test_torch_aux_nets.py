@@ -32,7 +32,7 @@ from e4s2024_torch.models.gcfsr import FaceInpainter, FaceInpainting, gcfsr_stat
 from e4s2024_torch.models.rrdb import RealESRGANUpscaler, RRDBNet
 from e4s2024_torch.ops import blend
 from e4s2024_torch.ops.upfirdn import make_kernel
-from tests.test_torch_criterion import two_threads  # noqa: F401  (autouse fixture)
+from tests.test_torch_criterion import jit_apply, two_threads  # noqa: F401  (autouse fixture)
 from tests.test_torch_gpen import (
     RRDB, assert_close_scaled, nchw, nhwc, np_sd, reference_state_dict)
 
@@ -107,9 +107,9 @@ def test_blender_matches_jax(blender_nets):
     img_t = ((rng.random((2, 32, 32, 3)) - mean) / std).astype(np.float32)
     mask_a, mask_t = _blocky_masks(15, 2, 32), _blocky_masks(16, 2, 32)
     mask_t[1] = np.where(np.isin(mask_t[1], (4, 5)), 0, mask_t[1])  # an eye part absent in T
-    want, want_pkgs = jblender.Blender().apply(
-        {"params": params}, jnp.asarray(img_a), jnp.asarray(img_t), jnp.asarray(mask_a),
-        jnp.asarray(mask_t))
+    want, want_pkgs = jit_apply(
+        jblender.Blender(), {"params": params}, jnp.asarray(img_a), jnp.asarray(img_t),
+        jnp.asarray(mask_a), jnp.asarray(mask_t))
     with torch.no_grad():
         got, pkgs = net(nchw(img_a), nchw(img_t), torch.from_numpy(mask_a),
                         torch.from_numpy(mask_t))
@@ -222,8 +222,8 @@ def test_gcfsr_matches_jax(gcfsr):
     rng = np.random.default_rng(23)
     x = rng.random((2, 64, 64, 4)).astype(np.float32)
     cond = np.array([[0.1], [0.3]], np.float32)
-    img, latent = JFaceInpainting(**GCFSR).apply({"params": params}, jnp.asarray(x),
-                                                 jnp.asarray(cond))
+    img, latent = jit_apply(JFaceInpainting(**GCFSR), {"params": params}, jnp.asarray(x),
+                            jnp.asarray(cond))
     with torch.no_grad():
         got, got_latent = net(nchw(x), torch.from_numpy(cond))
     assert got.shape == (2, 3, 64, 64) and got_latent.shape == (2, 6, 512)

@@ -109,13 +109,8 @@ def _vcfg(package, pti_steps=2, stitch_steps=1, batch=2, tune_mode="exact"):
 # ------------------------------------------------------------ the whole clip
 
 
-def test_tuned_weights_are_written_back(weights, monkeypatch):
-    """As the JAX pipeline writes the tuned variables into its swapper, the
-    port loads them into `swapper.rgi`: PTI starts from the swapper's
-    weights, stitching from PTI's, the swapper ends with stitching's, and a
-    second clip's PTI starts from the first clip's tuned generator."""
-    sw = port_swapper(weights)
-    starts, results = [], []
+def _spy_tunes(monkeypatch, starts, results):
+    """Record the weights each coach's `tune` starts from and returns."""
     for cls in (pti.PTICoach, pti.StitchingCoach):
         tune = cls.tune
 
@@ -126,13 +121,38 @@ def test_tuned_weights_are_written_back(weights, monkeypatch):
             return out
 
         monkeypatch.setattr(cls, "tune", spy)
+
+
+@pytest.fixture(scope="module")
+def tuned(weights):
+    """One 2-frame clip through the port's pipeline (PTI 1 step, stitching
+    1 step, fast mode), timed, its tunes spied on: the write-back test and
+    the end-to-end test read the same run."""
+    sw = port_swapper(weights)
+    starts, results = [], []
     before = {k: v.clone() for k, v in sw.rgi.state_dict().items()}
     source, frames = _clip(5, n=2)
     pipe = FaceSwapVideoPipeline(sw, _vcfg("torch", 1, 1, tune_mode="fast"))
-    pipe(source, frames)
-    assert set(pipe.histories) == {"pti", "stitching"}
-    pipe.cfg.run_stitching = False  # the second clip: PTI only
-    pipe(source, frames)
+    timer = video.StageTimer()
+    with pytest.MonkeyPatch.context() as mp:
+        _spy_tunes(mp, starts, results)
+        outs = pipe(source, frames, timer=timer)
+    return dict(swapper=sw, pipe=pipe, source=source, frames=frames, outs=outs, timer=timer,
+                histories={k: list(v) for k, v in pipe.histories.items()}, before=before,
+                starts=starts, results=results)
+
+
+def test_tuned_weights_are_written_back(tuned, monkeypatch):
+    """As the JAX pipeline writes the tuned variables into its swapper, the
+    port loads them into `swapper.rgi`: PTI starts from the swapper's
+    weights, stitching from PTI's, the swapper ends with stitching's, and a
+    second clip's PTI starts from the first clip's tuned generator."""
+    sw, pipe, before = tuned["swapper"], tuned["pipe"], tuned["before"]
+    starts, results = list(tuned["starts"]), list(tuned["results"])
+    assert set(tuned["histories"]) == {"pti", "stitching"}
+    _spy_tunes(monkeypatch, starts, results)
+    monkeypatch.setattr(pipe.cfg, "run_stitching", False)  # the second clip: PTI only
+    pipe(tuned["source"], tuned["frames"])
     assert len(starts) == len(results) == 3
 
     def same(a, b):
@@ -152,19 +172,18 @@ def _diff(got, want):
     return int(d.max()), float(d.mean()), float(np.mean(d <= 1))
 
 
-def test_video_pipeline_end_to_end(weights):
-    """The port alone: 2 frames, PTI 1 step, stitching 1 step; uint8
-    frames of the input size, finite per-step losses, the stages timed; a
-    clip of mixed frame sizes through the per-frame paste-back."""
-    source, frames = _clip(6, n=2)
-    pipe = FaceSwapVideoPipeline(port_swapper(weights), _vcfg("torch", 1, 1, tune_mode="fast"))
-    timer = video.StageTimer()
-    outs = pipe(source, frames, timer=timer)
+def test_video_pipeline_end_to_end(weights, tuned):
+    """The port alone: 2 frames, PTI 1 step, stitching 1 step (the `tuned`
+    clip); uint8 frames of the input size, finite per-step losses, the
+    stages timed; a clip of mixed frame sizes through the per-frame
+    paste-back."""
+    source, frames, outs, timer = (tuned[k] for k in ("source", "frames", "outs", "timer"))
+    hist = tuned["histories"]
     assert len(outs) == 2
     for o, f in zip(outs, frames):
         assert o.shape == f.shape and o.dtype == np.uint8
-    assert len(pipe.histories["pti"]) == 1 and len(pipe.histories["stitching"]) == 1
-    assert all(np.isfinite(v) for h in pipe.histories.values() for m in h for v in m.values())
+    assert len(hist["pti"]) == 1 and len(hist["stitching"]) == 1
+    assert all(np.isfinite(v) for h in hist.values() for m in h for v in m.values())
     assert {"detect_align", "pti_tune", "stitching_tune", "synth_composite_pasteback",
             "d2h_gather"} <= set(timer.times)
     # mixed frame sizes take the per-frame paste-back

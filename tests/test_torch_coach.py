@@ -32,6 +32,7 @@ from e4s2024_torch.convert import coach_state_from_jax, rgi_state_dict_from_jax
 from e4s2024_torch.training.coach import EMA_ACCUM, Coach, TrainConfig
 from tests.test_torch_criterion import two_threads  # noqa: F401  (autouse fixture)
 from tests.test_torch_models import random_params
+from tests.torch_ranks import release_memory
 
 # 16^2, not 32^2: the Discriminator is 512 channels wide at and under 32^2,
 # and at 32^2 its R1 steps made this file 108 s of worker time in the
@@ -87,11 +88,13 @@ def _port(tree, **kw):
 @pytest.fixture(scope="module")
 def module_threads():
     """Two torch threads for a module-scoped fixture (set up before the
-    function-scoped `two_threads`), restored after the module."""
+    function-scoped `two_threads`), restored after the module, whose
+    memory then goes back to the system (`torch_ranks.release_memory`)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(threads)
+    release_memory()
 
 
 @pytest.fixture(scope="module")

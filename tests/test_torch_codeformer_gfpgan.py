@@ -27,7 +27,7 @@ from e4s2024_torch.models import codeformer
 from e4s2024_torch.models.codeformer import CodeFormer, CodeFormerEnhancer, codeformer_state_dict
 from e4s2024_torch.models.gfpgan import GFPGANEnhancer, GFPGANv1Clean, gfpgan_state_dict
 from e4s2024_torch.ops.resize import resize_bilinear
-from tests.test_torch_criterion import two_threads  # noqa: F401  (autouse fixture)
+from tests.test_torch_criterion import jit_apply, two_threads  # noqa: F401  (autouse fixture)
 from tests.test_torch_gpen import assert_close_scaled, nchw, nhwc, np_sd, reference_state_dict
 
 PLAN = dict(nf=32, ch_mult=(1, 2), resolution=32)
@@ -71,7 +71,7 @@ def test_codeformer_matches_jax(small_plans):
     net = CodeFormer(**CF).eval()
     net.load_state_dict(codeformer_state_dict(file_sd))
     x = (np.random.default_rng(51).random((2, 32, 32, 3)) * 2 - 1).astype(np.float32)
-    img, logits, lq = small_plans.apply({"params": params}, jnp.asarray(x), w)
+    img, logits, lq = jit_apply(small_plans, {"params": params}, jnp.asarray(x), w=w)
     with torch.no_grad():
         got, got_logits, got_lq = net(nchw(x), w)
     # float32 through the VQ encoder, two transformer layers and the
@@ -117,7 +117,7 @@ def test_gfpgan_matches_jax(gfpgan):
     net = GFPGANv1Clean(**GFPGAN).eval()
     net.load_state_dict(gfpgan_state_dict(file_sd))
     x = (np.random.default_rng(55).random((2, 64, 64, 3)) * 2 - 1).astype(np.float32)
-    img, latent = JGFPGANv1Clean(**GFPGAN).apply({"params": params}, jnp.asarray(x))
+    img, latent = jit_apply(JGFPGANv1Clean(**GFPGAN), {"params": params}, jnp.asarray(x))
     with torch.no_grad():
         got, got_latent = net(nchw(x))
     # float32 through the U-Net and 11 modulated convs: summation order

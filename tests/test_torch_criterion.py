@@ -33,6 +33,7 @@ from e4s2024_torch.models.parser_unet import ParsingUNet
 from e4s2024_torch.ops import fused_act
 from e4s2024_torch.ops.morphology import dilation, erosion
 from e4s2024_torch.ops.pool import adaptive_avg_pool2d, global_avg_pool
+from tests.torch_ranks import release_memory
 
 # ArcFace taps (C, H, W) at a 112^2 input: units 2, 6, 20, 23
 ARCFACE_TAPS = ((64, 56, 56), (128, 28, 28), (256, 14, 14), (512, 7, 7))
@@ -45,11 +46,21 @@ def two_threads():
     a parallel region over every core, then wait on descheduled threads
     (the other port test files import this fixture; module scope, so that
     their module-scoped fixtures, which build the nets, run on two threads
-    too)."""
+    too); at the module's end its memory goes back to the system
+    (`torch_ranks.release_memory`)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(threads)
+    release_memory()
+
+
+def jit_apply(module, variables, *args, **static):
+    """`module.apply(variables, *args, **static)` as one compiled program:
+    op by op, a net's JAX reference takes several times as long on the CPU.
+    The variables and arrays are the program's arguments (as constants,
+    XLA would fold them at compile time); the keywords stay fixed."""
+    return jax.jit(lambda v, *a: module.apply(v, *a, **static))(variables, *args)
 
 
 def nchw(x):
@@ -150,7 +161,7 @@ def test_lpips_matches_jax(loss_nets):
     nets, jp = loss_nets
     x, y = _images(1, 2, 64), _images(2, 2, 64)
     got = float(nets["lpips"](nchw(x), nchw(y)))
-    want = float(JLPIPS().apply({"params": jp["lpips"]}, jnp.asarray(x), jnp.asarray(y)))
+    want = float(jit_apply(JLPIPS(), {"params": jp["lpips"]}, jnp.asarray(x), jnp.asarray(y)))
     assert got == pytest.approx(want, rel=1e-5)
 
 
@@ -160,7 +171,7 @@ def test_arcface_matches_jax(loss_nets):
     nets, jp = loss_nets
     x = _images(3, 2, 112)
     got = nets["arcface"](nchw(x), multi_scale=True)
-    want = JArcFace().apply({"params": jp["arcface"]}, jnp.asarray(x), multi_scale=True)
+    want = jit_apply(JArcFace(), {"params": jp["arcface"]}, jnp.asarray(x), multi_scale=True)
     assert len(got) == len(want) == 5
     for g, w, shape in zip(got, want, ARCFACE_TAPS + (None,)):
         g = g.numpy()
@@ -176,13 +187,13 @@ def test_parser_unet_matches_jax(loss_nets):
     x = _images(4, 1, 64)
     net = nets["parser"]
     got = net.extract_feats(nchw(x))
-    want = JParsingUNet().apply({"params": jp["parser"]}, jnp.asarray(x),
-                                method=JParsingUNet.extract_feats)
+    want = jit_apply(JParsingUNet(), {"params": jp["parser"]}, jnp.asarray(x),
+                     method=JParsingUNet.extract_feats)
     for i, (g, w) in enumerate(zip(got, want)):
         c, s = 16 * 2 ** i, 64 // 2 ** i
         g = g.numpy().reshape(1, c, s, s).transpose(0, 2, 3, 1).reshape(1, -1)
         np.testing.assert_allclose(g, np.asarray(w), atol=2e-5 * np.abs(w).max(), rtol=1e-4)
-    logits = JParsingUNet().apply({"params": jp["parser"]}, jnp.asarray(x))
+    logits = jit_apply(JParsingUNet(), {"params": jp["parser"]}, jnp.asarray(x))
     np.testing.assert_allclose(nhwc(net(nchw(x))), np.asarray(logits),
                                atol=1e-4 * np.abs(logits).max(), rtol=1e-4)
 
@@ -224,10 +235,10 @@ def test_recon_criterion_matches_jax(loss_nets, term):
     (grad,) = torch.autograd.grad(loss, r)
     loss = loss.detach()
     jcrit = JReconCriterion(jp, **lambdas)
-    value_and_grad = jax.value_and_grad(lambda a: jcrit(a, jnp.asarray(img))[0])
-    if term != "face_parsing":  # XLA's CPU compile of the 512^2 parser costs more than it saves
-        value_and_grad = jax.jit(value_and_grad)
-    jloss, jgrad = value_and_grad(jnp.asarray(recon))
+    # the target is an argument: captured as a constant, XLA's CPU compile
+    # folds the target's whole branch (the 512^2 parser: a minute)
+    value_and_grad = jax.jit(jax.value_and_grad(lambda a, b: jcrit(a, b)[0]))
+    jloss, jgrad = value_and_grad(jnp.asarray(recon), jnp.asarray(img))
     assert float(loss) == pytest.approx(float(jloss), rel=2e-5)
     assert float(metrics[f"loss_{term}"].detach()) == pytest.approx(float(jloss), rel=2e-5)
     jgrad = np.asarray(jgrad)

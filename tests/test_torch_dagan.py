@@ -24,7 +24,7 @@ from e4s2024_tpu.models import dagan as jdagan
 
 from e4s2024_torch.convert import dagan_state_dicts_from_jax
 from e4s2024_torch.models import dagan
-from tests.test_torch_criterion import two_threads  # noqa: F401  (autouse fixture)
+from tests.test_torch_criterion import jit_apply, two_threads  # noqa: F401  (autouse fixture)
 from tests.test_torch_facevid2vid import np_sd, seeded_state_dict
 
 NUM_KP, LAYERS, DCH = 3, (1, 1, 1, 1), (4, 8, 16, 32, 64)
@@ -77,16 +77,16 @@ def test_depth_and_keypoints_match_jax(drivers):
     jdrv, drv, _, _ = drivers
     img = _frames(36, 2)
     p = jdrv.params
-    feats = jdrv.enc.apply({"params": p["depth_encoder"]}, jnp.asarray(img))
-    want_d = jdrv.dec.apply({"params": p["depth_decoder"]}, feats)
+    feats = jit_apply(jdrv.enc, {"params": p["depth_encoder"]}, jnp.asarray(img))
+    want_d = jit_apply(jdrv.dec, {"params": p["depth_decoder"]}, feats)
     x = torch.from_numpy(img).permute(0, 3, 1, 2)
     with torch.inference_mode():
         got_d = drv.dec(drv.enc(x))
         np.testing.assert_allclose(got_d.permute(0, 2, 3, 1).numpy(), np.asarray(want_d),
                                    atol=1e-4)
         got = drv.kp(torch.cat([x, got_d], 1))
-    want = jdrv.kp.apply({"params": p["kp_detector"]},
-                         jnp.concatenate([jnp.asarray(img), want_d], -1))
+    want = jit_apply(jdrv.kp, {"params": p["kp_detector"]},
+                     jnp.concatenate([jnp.asarray(img), want_d], -1))
     for key in ("value", "jacobian"):
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=1e-4,
                                    err_msg=key)

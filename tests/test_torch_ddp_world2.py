@@ -33,6 +33,7 @@ from e4s2024_torch.convert import (coach_state_from_jax, discriminator_state_dic
                                    rgi_state_dict_from_jax)
 from tests.test_torch_coach import TINY, _batches, _nchw
 from tests.test_torch_coach import module_threads  # noqa: F401
+from tests.test_torch_criterion import jit_apply
 from tests.test_torch_models import random_params
 from tests.torch_ranks import start_ranks, trainer_world
 
@@ -81,9 +82,10 @@ def world2(tmp_path_factory, module_threads):
                                          jnp.asarray(img), jnp.asarray(onehot))
     jd_state, jd_metrics = coach._d_step(_jax_state(coach, variables, d_params, cfg),
                                          jnp.asarray(img), jnp.asarray(onehot), True)
-    d_apply = lambda xx: jdisc.apply({"params": d_params}, xx)  # noqa: E731
-    j_logits = np.asarray(d_apply(jnp.asarray(img)))
-    j_r1 = float(j_r1_penalty(d_apply, jnp.asarray(img)))
+    # compiled: op by op, the Discriminator and its R1 take several times as long
+    j_logits = np.asarray(jit_apply(jdisc, {"params": d_params}, jnp.asarray(img)))
+    j_r1 = float(jax.jit(lambda p, xx: j_r1_penalty(lambda v: jdisc.apply({"params": p}, v), xx))(
+        d_params, jnp.asarray(img)))
     return dict(tree=tree, variables=variables, d_params=d_params, ranks=ranks.join(),
                 jg=(jg_state, {k: float(v) for k, v in jg_metrics.items()}),
                 jd=(jd_state, {k: float(v) for k, v in jd_metrics.items()}),
@@ -132,9 +134,9 @@ def test_g_step_matches_jax_sharded_step(world2):
                                     "buffers": world2["variables"]["buffers"]})
     want.pop("latent_avg")
     for rank in world2["ranks"]:
-        metrics, params = rank["coach"]["g"]
+        metrics, params, _ = rank["coach"]["g"]
         _assert_metrics(metrics, jmetrics)
-        _assert_params(params, want, init)
+    _assert_params(world2["ranks"][0]["coach"]["g"][1], want, init)
 
 
 def test_d_r1_step_matches_jax_sharded_step(world2):
@@ -143,9 +145,9 @@ def test_d_r1_step_matches_jax_sharded_step(world2):
     init = world2["tree"]["d_params"]
     want = discriminator_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jstate.d_params))
     for rank in world2["ranks"]:
-        metrics, params = rank["coach"]["d_r1"]
+        metrics, params, _ = rank["coach"]["d_r1"]
         _assert_metrics(metrics, jmetrics)
-        _assert_params(params, want, init)
+    _assert_params(world2["ranks"][0]["coach"]["d_r1"][1], want, init)
 
 
 def test_encoder_gradient_splits_over_rows():
@@ -179,9 +181,10 @@ def test_encoder_gradient_splits_over_rows():
 
 
 def test_ranks_hold_equal_weights_and_refuse_an_indivisible_batch(world2):
+    """Rank 1 holds rank 0's weights exactly after each step (each rank
+    compares its own with rank 0's, broadcast)."""
     r0, r1 = world2["ranks"]
     for kind in ("g", "d_r1"):
-        for k, p in r0["coach"][kind][1].items():
-            assert torch.equal(p, r1["coach"][kind][1][k]), (kind, k)
+        assert r0["coach"][kind][2] and r1["coach"][kind][2], kind
     for rank in (r0, r1):
         assert rank["refused"] is not None and "3" in rank["refused"] and "2" in rank["refused"]

@@ -18,7 +18,7 @@ from e4s2024_tpu.ops import deform_conv as jdc
 from e4s2024_torch.convert import dcnv2pack_state_dict_from_jax
 from e4s2024_torch.ops import deform_conv as dc
 from e4s2024_torch.pipelines.pose_drive import make_pose_driver
-from tests.test_torch_criterion import two_threads  # noqa: F401  (autouse fixture)
+from tests.test_torch_criterion import jit_apply, two_threads  # noqa: F401  (autouse fixture)
 
 
 @pytest.mark.parametrize("stride,padding,dilation", [(1, 1, 1), (2, 1, 1), (1, 2, 2)])
@@ -55,7 +55,7 @@ def test_dcnv2pack_matches_jax():
                             jnp.asarray(feat))["params"]
     params = jax.tree_util.tree_map(
         lambda s: jnp.asarray(rng.standard_normal(s.shape).astype(np.float32) * 0.4), shapes)
-    want = np.asarray(jmod.apply({"params": params}, jnp.asarray(x), jnp.asarray(feat)))
+    want = np.asarray(jit_apply(jmod, {"params": params}, jnp.asarray(x), jnp.asarray(feat)))
     mod = dc.DCNv2Pack(8, 12, deformable_groups=2)
     mod.load_state_dict(dcnv2pack_state_dict_from_jax(params), strict=True)
     with torch.inference_mode():

@@ -24,7 +24,7 @@ from e4s2024_torch.losses.losses import r1_penalty
 from e4s2024_torch.models.stylegan2 import Discriminator
 from e4s2024_torch.ops import fused_act, upfirdn
 from e4s2024_torch.ops.upfirdn import make_kernel
-from tests.test_torch_criterion import two_threads  # noqa: F401  (autouse fixture)
+from tests.test_torch_criterion import jit_apply, two_threads  # noqa: F401  (autouse fixture)
 from tests.test_torch_gpen import nchw, np_sd, reference_state_dict
 
 SIZE = 16  # the trainer tests' size (tests/test_torch_coach.py)
@@ -63,7 +63,7 @@ def test_discriminator_matches_jax(nets, b):
     stddev group of 4 and of 2."""
     d, jd, jparams = nets
     x = _images(1, b)
-    want = np.asarray(jd.apply({"params": jparams}, x))
+    want = np.asarray(jit_apply(jd, {"params": jparams}, x))
     with torch.no_grad():
         got = d(nchw(x)).numpy()
     assert got.shape == (b, 1)
@@ -88,10 +88,10 @@ def test_r1_and_its_gradient_match_jax(nets):
     # the last bias does not reach the input gradient: no gradient (JAX: 0)
     grads = torch.autograd.grad(r1, list(d.parameters()), allow_unused=True)
 
-    def j_r1(p):
-        return j_r1_penalty(lambda v: jd.apply({"params": p}, v), jnp.asarray(x))
+    def j_r1(p, xx):
+        return j_r1_penalty(lambda v: jd.apply({"params": p}, v), xx)
 
-    want, jgrads = jax.value_and_grad(j_r1)(jparams)
+    want, jgrads = jax.jit(jax.value_and_grad(j_r1))(jparams, jnp.asarray(x))
     np.testing.assert_allclose(float(r1), float(want), rtol=1e-5)
     want_sd = discriminator_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jgrads))
     for (name, _), g in zip(d.named_parameters(), grads):

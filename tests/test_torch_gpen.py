@@ -32,7 +32,7 @@ from e4s2024_torch.models.gpen import (
 from e4s2024_torch.models.rrdb import RealESRGANUpscaler, RRDBNet
 from e4s2024_torch.ops.upfirdn import make_kernel
 from e4s2024_torch.pipelines import arcface_align
-from tests.test_torch_criterion import two_threads  # noqa: F401  (autouse fixture)
+from tests.test_torch_criterion import jit_apply, two_threads  # noqa: F401  (autouse fixture)
 
 GPEN = dict(size=64, narrow=0.25)
 RRDB = dict(num_feat=16, num_block=2, num_grow=8)
@@ -157,8 +157,8 @@ def test_conv_layer_matches_jax(downsample, bias, activate, k):
     if activate and bias:
         p["act_bias"] = sd[f"{i + 1}.bias"].numpy()
     x = np.random.default_rng(3).standard_normal((2, 16, 16, 6)).astype(np.float32)
-    want = jsg2.ConvLayer(10, k, downsample=downsample, use_bias=bias, activate=activate).apply(
-        {"params": p}, jnp.asarray(x))
+    want = jit_apply(jsg2.ConvLayer(10, k, downsample=downsample, use_bias=bias,
+                                    activate=activate), {"params": p}, jnp.asarray(x))
     got = layer(nchw(x))
     # float32 convolutions of 6 * k^2 terms
     np.testing.assert_allclose(nhwc(got), np.asarray(want), rtol=1e-5, atol=1e-5)
@@ -167,7 +167,7 @@ def test_conv_layer_matches_jax(downsample, bias, activate, k):
 def test_gpen_matches_jax(gpen):
     _, params, net = gpen
     x = (np.random.default_rng(4).random((2, 64, 64, 3)) * 2 - 1).astype(np.float32)
-    img, latent = JGPENFullGenerator(**GPEN).apply({"params": params}, jnp.asarray(x))
+    img, latent = jit_apply(JGPENFullGenerator(**GPEN), {"params": params}, jnp.asarray(x))
     with torch.no_grad():
         got, got_latent = net(nchw(x))
     assert got.shape == (2, 3, 64, 64) and got_latent.shape == (2, 10, 512)

@@ -24,7 +24,7 @@ from e4s2024_torch.convert import lia_state_dict_from_jax
 from e4s2024_torch.models import lia
 from e4s2024_torch.models.stylegan2 import ResBlock
 from e4s2024_torch.ops.upfirdn import make_kernel
-from tests.test_torch_criterion import two_threads  # noqa: F401  (autouse fixture)
+from tests.test_torch_criterion import jit_apply, two_threads  # noqa: F401  (autouse fixture)
 from tests.test_torch_facevid2vid import np_sd, seeded_state_dict
 
 SIZE, MOTION = 64, 4
@@ -78,7 +78,7 @@ def test_resblock_matches_jax():
                         "act_bias": sd["conv2.2.bias"].numpy()},
               "skip": {"conv": {"weight": sd["skip.1.weight"].numpy().transpose(2, 3, 1, 0)}}}
     x = np.random.default_rng(43).standard_normal((2, 12, 10, 16)).astype(np.float32)
-    want = np.asarray(jblk.apply({"params": params}, jnp.asarray(x)))
+    want = np.asarray(jit_apply(jblk, {"params": params}, jnp.asarray(x)))
     blk = ResBlock(16, 32)
     blk.load_state_dict(sd, strict=True)
     with torch.inference_mode():

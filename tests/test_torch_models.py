@@ -29,7 +29,7 @@ from e4s2024_torch.models.bisenet import BiSeNet, bicubic_downsample
 from e4s2024_torch.models.encoders import FSEncoderPSP
 from e4s2024_torch.models.rgi import RGINet
 from e4s2024_torch.models.stylegan2 import EqualConv2d, Generator
-from tests.test_torch_criterion import two_threads  # noqa: F401
+from tests.test_torch_criterion import jit_apply, two_threads  # noqa: F401
 
 
 def random_params(tree, seed: int):
@@ -109,8 +109,8 @@ def test_generator_matches_jax(generator_pair, mode):
     rng = np.random.default_rng(2)
     latent = (0.5 * rng.standard_normal((2, 12, jgen.n_latent, 512))).astype(np.float32)
     seg = one_hot_nhwc(rng, 2, 8, 8)
-    want, _, _ = jgen.apply({"params": params}, jnp.asarray(latent), None, jnp.asarray(seg),
-                            regional_mode=mode)
+    want, _, _ = jit_apply(jgen, {"params": params}, jnp.asarray(latent), None,
+                           jnp.asarray(seg), regional_mode=mode)
     with torch.no_grad():
         got, _, _ = gen(torch.from_numpy(latent), None, nchw(seg), regional_mode=mode)
     want = np.asarray(want)
@@ -127,8 +127,9 @@ def test_generator_noise_matches_jax(generator_pair):
     seg = one_hot_nhwc(rng, 1, 8, 8)
     noise = [rng.standard_normal((1, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2), 1)).astype(np.float32)
              for i in range(jgen.num_layers)]
-    want, _, _ = jgen.apply({"params": params}, jnp.asarray(latent), None, jnp.asarray(seg),
-                            noise=[jnp.asarray(n) for n in noise], regional_mode="fast")
+    want, _, _ = jit_apply(jgen, {"params": params}, jnp.asarray(latent), None,
+                           jnp.asarray(seg), noise=[jnp.asarray(n) for n in noise],
+                           regional_mode="fast")
     with torch.no_grad():
         got, _, _ = gen(torch.from_numpy(latent), None, nchw(seg), noise=[nchw(n) for n in noise],
                         regional_mode="fast")
@@ -140,7 +141,8 @@ def test_style_mlp_matches_jax(generator_pair):
     """pixel_norm + 8 EqualLinear(lr_mul 0.01, fused LeakyReLU): z -> w."""
     jgen, params, gen = generator_pair
     z = np.random.default_rng(4).standard_normal((3, 512)).astype(np.float32)
-    want = np.asarray(jgen.apply({"params": params}, jnp.asarray(z), method=JGenerator.style))
+    want = np.asarray(jit_apply(jgen, {"params": params}, jnp.asarray(z),
+                                method=JGenerator.style))
     with torch.no_grad():
         got = gen.style(torch.from_numpy(z)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max(), rtol=1e-4)
@@ -180,7 +182,7 @@ def test_encoder_matches_jax_and_round_trips():
     jenc = JFSEncoderPSP(num_units=UNITS)
     params = random_params(jax.eval_shape(jenc.init, jax.random.PRNGKey(0), jnp.asarray(x),
                                           jnp.asarray(seg))["params"], 4)
-    want, _ = jenc.apply({"params": params}, jnp.asarray(x), jnp.asarray(seg))
+    want, _ = jit_apply(jenc, {"params": params}, jnp.asarray(x), jnp.asarray(seg))
     enc = FSEncoderPSP(UNITS)
     enc.load_state_dict(convert.encoder_state_dict_from_jax(params), strict=True)
     with torch.no_grad():
@@ -207,11 +209,12 @@ def bisenet_pair():
 def test_bisenet_matches_jax(bisenet_pair):
     jnet, params, net = bisenet_pair
     x = np.random.default_rng(6).standard_normal((2, 64, 64, 3)).astype(np.float32)
-    want = jnet.apply({"params": params}, jnp.asarray(x), aux=True)
+    want = jit_apply(jnet, {"params": params}, jnp.asarray(x), aux=True)
     with torch.no_grad():
         got = net(nchw(x), aux=True)
         main_low, _, _ = net(nchw(x), aux=False, upsample=False)
-    want_low, _, _ = jnet.apply({"params": params}, jnp.asarray(x), aux=False, upsample=False)
+    want_low, _, _ = jit_apply(jnet, {"params": params}, jnp.asarray(x), aux=False,
+                               upsample=False)
     for g, w in zip(got, want):
         w = np.asarray(w)
         # logits of O(10) through 20 conv layers: relative float32 bound
@@ -255,11 +258,11 @@ def test_rgi_matches_jax(rgi_pair, mode):
     rng = np.random.default_rng(9)
     img = rng.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
     seg = one_hot_nhwc(rng, 1, 16, 16)
-    sv_j, _ = jrgi.apply(variables, jnp.asarray(img), jnp.asarray(seg),
-                         method=JRGINet.get_style_vectors)
-    codes_j = jrgi.apply(variables, sv_j, method=JRGINet.cal_style_codes)
-    img_j, _, _ = jrgi.apply(variables, None, codes_j, jnp.asarray(seg), method=JRGINet.gen_img,
-                             regional_mode=mode)
+    sv_j, _ = jit_apply(jrgi, variables, jnp.asarray(img), jnp.asarray(seg),
+                        method=JRGINet.get_style_vectors)
+    codes_j = jit_apply(jrgi, variables, sv_j, method=JRGINet.cal_style_codes)
+    img_j, _, _ = jit_apply(jrgi, variables, None, codes_j, jnp.asarray(seg),
+                            method=JRGINet.gen_img, regional_mode=mode)
     with torch.no_grad():
         sv, _ = rgi.get_style_vectors(nchw(img), nchw(seg))
         codes = rgi.cal_style_codes(sv)

@@ -17,7 +17,7 @@ from e4s2024_tpu.models.rgi import RGINet as JRGINet
 from e4s2024_torch.convert import rgi_state_dict_from_jax
 from e4s2024_torch.models.encoders import FSEncoderSEAN
 from e4s2024_torch.models.rgi import RGINet, fsencoder_type_of
-from tests.test_torch_criterion import two_threads  # noqa: F401  (autouse fixture)
+from tests.test_torch_criterion import jit_apply, two_threads  # noqa: F401  (autouse fixture)
 from tests.test_torch_gpen import nchw, nhwc, np_sd, reference_state_dict
 
 TINY = dict(out_size=32, remaining_layer_idx=5, channel_multiplier=1, encoder_input_size=64)
@@ -37,7 +37,7 @@ def test_sean_encoder_matches_jax():
     sd = reference_state_dict(enc, 0)
     enc.load_state_dict(sd, strict=True)
     img, seg = _inputs(1)
-    sv, st = JFSEncoderSEAN().apply({"params": convert_encoder_sean(np_sd(sd))}, img, seg)
+    sv, st = jit_apply(JFSEncoderSEAN(), {"params": convert_encoder_sean(np_sd(sd))}, img, seg)
     with torch.no_grad():
         got_sv, got_st = enc(nchw(img), nchw(seg))
     assert got_sv.shape == (2, 12, 512) and got_st.shape == (2, 512, 4, 4)
@@ -60,9 +60,8 @@ def test_rgi_with_sean_switches_and_matches_jax():
     net.load_state_dict(sd, strict=True)
     variables = convert_rgi(np_sd(sd))
     img, seg = _inputs(4)
-    want, _ = JRGINet(fsencoder_type="sean", **TINY).apply(variables, jnp.asarray(img),
-                                                            jnp.asarray(seg),
-                                                            regional_mode="fast")
+    want, _ = jit_apply(JRGINet(fsencoder_type="sean", **TINY), variables, jnp.asarray(img),
+                        jnp.asarray(seg), regional_mode="fast")
     with torch.no_grad():
         got, _ = net(nchw(img), nchw(seg), regional_mode="fast")
     want = np.asarray(want)

@@ -24,7 +24,7 @@ from e4s2024_torch.ops.swin_block import (
     widths_ok)
 from tests.test_torch_kernels import _block_weights as _random_block_weights
 from tests.test_torch_swinir import _port_block_weights, swin_params
-from tests.test_torch_criterion import two_threads  # noqa: F401
+from tests.test_torch_criterion import jit_apply, two_threads  # noqa: F401
 
 SHAPES = [(12, 2, 24), (180, 6, 360), (15, 3, 30)]
 DTYPES = [torch.float32, torch.bfloat16]
@@ -155,7 +155,7 @@ def test_shift_inside_the_block_matches_jax(shift):
                            None if labels is None else torch.from_numpy(labels),
                            window=ws, heads=heads, shift=shift)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=2e-4)
-    want_module = np.asarray(module.apply({"params": params}, jnp.asarray(x)))
+    want_module = np.asarray(jit_apply(module, {"params": params}, jnp.asarray(x)))
     np.testing.assert_allclose(got.numpy(), want_module, atol=2e-4, rtol=2e-4)
 
 

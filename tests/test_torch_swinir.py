@@ -41,7 +41,7 @@ from e4s2024_torch.models.swinir import SwinIR, SwinIREnhancer, SwinIRUpscaler, 
 from e4s2024_torch.ops.swin_block import block_weights, fused_swin_block
 from e4s2024_torch.ops.window_attention import fused_window_attention, swin_attention_nhwc
 from tests.test_torch_models import random_params, torch_to_numpy
-from tests.test_torch_criterion import two_threads  # noqa: F401
+from tests.test_torch_criterion import jit_apply, two_threads  # noqa: F401
 
 TINY = dict(embed_dim=24, depths=(2, 2), heads=(2, 2), num_feat=16)
 ATT_TOL = dict(atol=2e-5, rtol=2e-5)
@@ -126,7 +126,7 @@ def test_fused_swin_block_matches_jax(shift):
     module = JSwinBlock(dim=c, heads=heads, window=ws, shift=shift)
     params = swin_params(jax.eval_shape(module.init, jax.random.PRNGKey(1),
                                         jnp.zeros((b, h, w, c)))["params"], 4)
-    want_module = np.asarray(module.apply({"params": params}, jnp.asarray(x)))
+    want_module = np.asarray(jit_apply(module, {"params": params}, jnp.asarray(x)))
     jx, tx = jnp.asarray(x), torch.from_numpy(x)
     labels = None
     if shift:
@@ -181,7 +181,7 @@ def test_swinir_routes_match_jax(tiny, route):
     also against JAX `apply_fused` with the Pallas block in interpret mode."""
     jmodel, params, sd = tiny
     x = np.random.default_rng(5).random((1, 16, 16, 3)).astype(np.float32)
-    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x)))
+    want = np.asarray(jit_apply(jmodel, {"params": params}, jnp.asarray(x)))
     model = _model(sd, use_kernel=route == "nhwc")
     with torch.inference_mode():
         got = (apply_fused(model, torch.from_numpy(x)) if route == "fused"
@@ -200,7 +200,7 @@ def test_swinir_bfloat16_tracks_float32(tiny):
     own bound for its bfloat16 fused executor, tests/test_swin_fused.py)."""
     jmodel, params, sd = tiny
     x = np.random.default_rng(6).random((1, 16, 16, 3)).astype(np.float32)
-    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x)))
+    want = np.asarray(jit_apply(jmodel, {"params": params}, jnp.asarray(x)))
     with torch.inference_mode():
         got = apply_fused(_model(sd, dtype=torch.bfloat16), torch.from_numpy(x))
     assert got.dtype == torch.float32

@@ -12,7 +12,7 @@ from e4s2024_tpu.convert import convert_vgg16
 from e4s2024_tpu.models import vgg as jvgg
 
 from e4s2024_torch.models import StyleGramLoss, VGG16Features, gram_matrix
-from tests.test_torch_criterion import nchw, nhwc, two_threads  # noqa: F401
+from tests.test_torch_criterion import jit_apply, nchw, nhwc, two_threads  # noqa: F401
 
 TAPS = (3, 8, 15, 21)
 
@@ -48,7 +48,7 @@ def test_features_match_jax(weights):
     x = _images(1)
     with torch.no_grad():
         got = net(nchw(x))
-    want = jvgg.VGG16Features(taps=TAPS).apply({"params": params}, jnp.asarray(x))
+    want = jit_apply(jvgg.VGG16Features(taps=TAPS), {"params": params}, jnp.asarray(x))
     assert len(got) == len(want) == 4
     for g, w in zip(got, want):
         w = np.asarray(w)
