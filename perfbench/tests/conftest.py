@@ -1,0 +1,9 @@
+"""The benchmark's CPU tests: the checkout's root on the import path, so
+that `perfbench` and the port import as packages."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
