@@ -43,6 +43,11 @@ vectors first (`_swap_with_optimized_w`, stage "optimize_w_swap").
 inpainter are the identity, as in JAX. With a pose driver, JAX's
 `swap_batch` falls back to one staged call per pair, so each pair is gated
 on its own gap; the port batches the stages and keeps that per-pair gate.
+
+Spans (`utils.observability.span`): `swap_batch` and `__call__` around
+their calls, and each stage above under its name (pose_align holding
+pose_gate and pose_drive; optimize_w_swap in place of core_swap); the
+stages are the `stage` spans that a `StageTimer` counts.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from e4s2024_torch.ops import color
 from e4s2024_torch.ops.blend import blend_with_mask, sobel_edge, soft_erosion_planar
 from e4s2024_torch.ops.resize import resize_bilinear
 from e4s2024_torch.pipelines.swap import FaceSwapper
+from e4s2024_torch.utils.observability import StageTimer, span
 
 CT_MODES = ("none", "blender") + color.DEVICE_MODES + color.HOST_MODES
 
@@ -133,7 +139,7 @@ class FullFaceSwapPipeline:
             parts.append(comp.inpainter)
         return all(getattr(_owner(p), "fused_form", False) for p in parts)
 
-    def _pose_align(self, src: torch.Tensor, tgt: torch.Tensor, timer=None) -> torch.Tensor:
+    def _pose_align(self, src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
         """Reenactment of the (B, S, S, 3) uint8 source crops toward their
         targets' poses (reference :688-743). The estimator's gap is each
         pair's own (the largest of |d yaw|, |d pitch|, |d roll|); a pair is
@@ -141,18 +147,14 @@ class FullFaceSwapPipeline:
         when there is no estimator. The gate costs one host synchronisation.
         A driven pair's crop: /255, bilinear to 256^2, `pose_driver.drive`,
         bilinear back to S^2, x255, float. Returns the crops unchanged when
-        no pair is driven, else float crops. With `timer`, the gate and the
-        drive are the stages pose_gate and pose_drive."""
+        no pair is driven, else float crops. The gate and the drive are the
+        stages pose_gate and pose_drive."""
         comp = self.comp
         if comp.pose_driver is None:
             return src
-
-        def stage(name):
-            return contextlib.nullcontext() if timer is None else timer.stage(name)
-
         b = src.shape[0]
         gaps = None
-        with stage("pose_gate"):
+        with span("pose_gate", src.device, stage=True):
             if comp.pose_estimator is not None:
                 gaps = comp.pose_estimator.pose_gaps(src, tgt).tolist()
         drive = [i for i in range(b)
@@ -160,7 +162,7 @@ class FullFaceSwapPipeline:
         self.last_gate = {"gaps": gaps, "driven": [i in drive for i in range(b)]}
         if not drive:
             return src
-        with stage("pose_drive"):
+        with span("pose_drive", src.device, stage=True):
             size = src.shape[1]
             idx = torch.tensor(drive, device=src.device)
 
@@ -298,53 +300,53 @@ class FullFaceSwapPipeline:
 
     # ---------------- entry points ----------------
 
-    def _run(self, src: torch.Tensor, tgt: torch.Tensor, timer=None,
-             intermediates: bool = False) -> dict:
+    def _run(self, src: torch.Tensor, tgt: torch.Tensor, intermediates: bool = False) -> dict:
         """Every stage on (B, S, S, 3) uint8 crops on the device."""
-        def timed(name, fn, *a):
-            if timer is None:
-                return fn(*a)
-            with timer.stage(name):
-                return fn(*a)
-
-        cfg, comp = self.cfg, self.comp
+        cfg, comp, dev = self.cfg, self.comp, src.device
         fused = self._fused()
-        driven = timed("pose_align", self._pose_align, src, tgt, timer)
-        driven = timed("enhance", self._enhance, driven,
-                       "gpen" if "gpen" in comp.enhancers else None)
+        with span("pose_align", dev, stage=True):
+            driven = self._pose_align(src, tgt)
+        with span("enhance", dev, stage=True):
+            driven = self._enhance(driven, "gpen" if "gpen" in comp.enhancers else None)
         if cfg.optimize_w_steps > 0:
-            result = timed("optimize_w_swap", self._swap_with_optimized_w, driven, tgt)
+            with span("optimize_w_swap", dev, stage=True):
+                result = self._swap_with_optimized_w(driven, tgt)
         else:
-            result = timed("core_swap", self._core_swap, driven, tgt, fused)
+            with span("core_swap", dev, stage=True):
+                result = self._core_swap(driven, tgt, fused)
         swapped = result["image"].float()
         if cfg.ct_mode == "blender" and comp.recolorer is not None:
-            d19, t19 = timed("parse19", self._parse19, driven, tgt, result)
-            swapped = timed("recolor", self._recolor, swapped, tgt, d19, t19)
+            with span("parse19", dev, stage=True):
+                d19, t19 = self._parse19(driven, tgt, result)
+            with span("recolor", dev, stage=True):
+                swapped = self._recolor(swapped, tgt, d19, t19)
         elif cfg.ct_mode not in ("none", "blender"):
-            swapped = timed("recolor", self._recolor, swapped, tgt)
-        swapped = timed("inpaint", self._inpaint, swapped, result["hole_mask"])
-        return timed("package", self._package, swapped, driven, result, intermediates)
+            with span("recolor", dev, stage=True):
+                swapped = self._recolor(swapped, tgt)
+        with span("inpaint", dev, stage=True):
+            swapped = self._inpaint(swapped, result["hole_mask"])
+        with span("package", dev, stage=True):
+            return self._package(swapped, driven, result, intermediates)
 
     def __call__(self, source_crop255, target_crop255, verbose: bool = False, timer=None,
                  return_intermediates: bool = False) -> dict:
         """Swap one pair of aligned (S, S, 3) crops. Returns {"image": (S, S, 3)
         uint8}; `return_intermediates` adds the driven crop (uint8) and the
         swap's `swapped_mask` (uint8) and `hole_mask`. With `timer` (a
-        `pipelines.video.StageTimer`) or `verbose`, each stage ends in a
-        device synchronisation and the result carries `stage_times` (ms by
-        stage: pose_align, enhance, core_swap, parse19, recolor, inpaint,
-        package; with a pose driver also pose_gate and pose_drive, which
-        pose_align holds)."""
+        `StageTimer`, attached for the call) or `verbose`, the result
+        carries `stage_times` (ms by stage: pose_align, enhance, core_swap,
+        parse19, recolor, inpaint, package; with a pose driver also
+        pose_gate and pose_drive, which pose_align holds); reading them
+        waits for the device, no stage does."""
         if timer is None and verbose:
-            from e4s2024_torch.pipelines.video import StageTimer
-
             timer = StageTimer()
         sw = self.swapper
-        with torch.inference_mode():
+        attached = contextlib.nullcontext() if timer is None else timer.attach()
+        with attached, span("__call__", sw.device), torch.inference_mode():
             src, tgt = sw._as_u8(source_crop255)[None], sw._as_u8(target_crop255)[None]
-            out = {k: v[0] for k, v in self._run(src, tgt, timer, return_intermediates).items()}
+            out = {k: v[0] for k, v in self._run(src, tgt, return_intermediates).items()}
         if timer is not None:
-            out["stage_times"] = dict(timer.times)
+            out["stage_times"] = timer.times
         return out
 
     def shard_inference(self, process_group) -> None:
@@ -373,7 +375,7 @@ class FullFaceSwapPipeline:
         from e4s2024_torch.parallel.ddp import gather_rows, shard_rows
 
         sw, group = self.swapper, self.process_group
-        with torch.inference_mode():
+        with span("swap_batch", sw.device), torch.inference_mode():
             src, tgt = sw._as_u8(source_crops255), sw._as_u8(target_crops255)
             src, tgt = shard_rows(src, group), shard_rows(tgt, group)
             b = src.shape[0]

@@ -14,6 +14,11 @@ aligned-crop swap `swap_aligned` runs in its staged form:
 Stages 1-2 run on the (driven, target) pair as one batch, stages 3-5 on the
 swaps. The nets run in `compute_dtype`; compositing runs in float32.
 
+Spans (`utils.observability.span`): `swap_aligned` around the call, and in
+the helpers `upload` (each tensor moved to the device), `parse`, `invert`,
+`merge`, `synthesis` and `composite`, so that a caller of the helpers (the
+zoo's fused core swap) records the same stages under its own span.
+
 The raw-frame entries `swap` and `swap_all` take unaligned uint8 frames:
 68-point landmarks (the `landmark_fn` hook, or the RetinaFace + FAN stack of
 `pipelines/detect.py`), the FFHQ quad and its crop on the device, the
@@ -43,6 +48,7 @@ from e4s2024_torch.pipelines.alignment import (
     as_f32, compute_transform_from_landmarks, crop_quad, paste_back_coefficients,
     quad_from_cxy, warp_perspective)
 from e4s2024_torch.pipelines.mask_merge import swap_comp_style_vector, swap_head_mask
+from e4s2024_torch.utils.observability import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -152,11 +158,13 @@ class FaceSwapper:
         """Stages 1-2 on the (2B, S, S, 3) uint8 (or float [0, 255]) pair
         batch: (12-class masks, style vectors), and with `with_labels19` the
         19-class labels the masks were mapped from."""
-        img01 = pair255.permute(0, 3, 1, 2).float() / 255.0
-        labels19 = self._parse19(img01)
-        masks = map_labels(labels19, FFHQ_TO_12)
-        onehot = self._onehot_for_model(masks)
-        sv, _ = self.rgi.get_style_vectors((img01 * 2.0 - 1.0).to(self.dtype), onehot)
+        with span("parse", self.device):
+            img01 = pair255.permute(0, 3, 1, 2).float() / 255.0
+            labels19 = self._parse19(img01)
+            masks = map_labels(labels19, FFHQ_TO_12)
+        with span("invert", self.device):
+            onehot = self._onehot_for_model(masks)
+            sv, _ = self.rgi.get_style_vectors((img01 * 2.0 - 1.0).to(self.dtype), onehot)
         return (masks, sv, labels19) if with_labels19 else (masks, sv)
 
     def _composite(self, swapped_pm1, target_pm1, swapped_msk, hole_mask):
@@ -191,18 +199,21 @@ class FaceSwapper:
 
     def _synth_and_composite(self, swapped_sv, swapped_mask, hole_mask, t_pm1):
         """Stage 4-5: style codes -> regional synthesis -> composite."""
-        codes = self.rgi.cal_style_codes(swapped_sv.to(self.dtype))
-        onehot = self._onehot_for_model(swapped_mask)
-        swapped, _, _ = self.rgi.gen_img(None, codes, onehot,
-                                         regional_mode=self.cfg.regional_mode)
-        return self._composite(swapped.float(), t_pm1, swapped_mask, hole_mask)
+        with span("synthesis", self.device):
+            codes = self.rgi.cal_style_codes(swapped_sv.to(self.dtype))
+            onehot = self._onehot_for_model(swapped_mask)
+            swapped, _, _ = self.rgi.gen_img(None, codes, onehot,
+                                             regional_mode=self.cfg.regional_mode)
+        with span("composite", self.device):
+            return self._composite(swapped.float(), t_pm1, swapped_mask, hole_mask)
 
     def _merge_synth_composite(self, d_masks, t_masks, d_sv, t_sv, t255):
         """Stages 3-5 on B swaps. d_masks/t_masks: (B, Hm, Wm) labels;
         d_sv/t_sv: (B, K, D); t255: (B, S, S, 3) uint8."""
         t_pm1 = t255.permute(0, 3, 1, 2).float() / 127.5 - 1.0
-        merged = swap_head_mask(d_masks, t_masks)
-        swapped_sv = swap_comp_style_vector(t_sv, d_sv, self._comp)
+        with span("merge", self.device):
+            merged = swap_head_mask(d_masks, t_masks)
+            swapped_sv = swap_comp_style_vector(t_sv, d_sv, self._comp)
         image = self._synth_and_composite(swapped_sv, merged["mask"],
                                           merged["hole_mask"], t_pm1)
         return {
@@ -217,21 +228,22 @@ class FaceSwapper:
     def _as_u8(self, x) -> torch.Tensor:
         """To a uint8 [0, 255] tensor on the swapper's device (quantised on
         the host for numpy input, so a quarter of the bytes cross)."""
-        if not isinstance(x, torch.Tensor):
-            x = np.asarray(x)
-            if x.dtype != np.uint8:
-                x = np.clip(x, 0, 255).astype(np.uint8)
-            x = torch.from_numpy(x)
-        elif x.dtype != torch.uint8:
-            x = torch.clamp(x, 0, 255).to(torch.uint8)
-        return x.to(self.device)
+        with span("upload", self.device):
+            if not isinstance(x, torch.Tensor):
+                x = np.asarray(x)
+                if x.dtype != np.uint8:
+                    x = np.clip(x, 0, 255).astype(np.uint8)
+                x = torch.from_numpy(x)
+            elif x.dtype != torch.uint8:
+                x = torch.clamp(x, 0, 255).to(torch.uint8)
+            return x.to(self.device)
 
     def swap_aligned(self, driven255, target255) -> dict:
         """Aligned-crop swap. Inputs (B, S, S, 3) uint8 (or float in
         [0, 255]), numpy or tensors. Returns a dict of tensors on the
         swapper's device: image (B, S, S, 3) uint8, swapped_mask and
         hole_mask (B, 512, 512), swapped_style_vectors (B, 12, 1280)."""
-        with torch.inference_mode():
+        with span("swap_aligned", self.device), torch.inference_mode():
             d, t = self._as_u8(driven255), self._as_u8(target255)
             b = d.shape[0]
             masks, sv = self._parse_invert(torch.cat([d, t], dim=0))

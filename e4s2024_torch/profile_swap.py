@@ -23,9 +23,9 @@ a 1280x960 source onto a 1920x1080 target), warms it up, then:
 With --zoo it profiles the zoo-enhanced swap, `FullFaceSwapPipeline` at
 the reference's default configuration (`zoo_components`: GPEN-512, Blender
 with RealESRGAN x4, GCFSR inpainting) over the float32 swapper: step 1
-reports the pipeline's own stages from its `timer` hook (pose_align,
-enhance, core_swap, parse19, recolor, inpaint, package), step 2 as above,
-with the peak device memory.
+reports the device time of the pipeline's own stages from its `timer` hook
+(pose_align, enhance, core_swap, parse19, recolor, inpaint, package), step
+2 as above, with the peak device memory.
 
 With --reenact it profiles the reenacted zoo swap: the --zoo pipeline
 with `reenact_components` (faceVid2Vid at vox-256 and the Hopenet pose
@@ -218,7 +218,7 @@ def profile_video(args) -> None:
     pipe(source, frames, timer=timer)
     wall_s = time.perf_counter() - t0
     for name, ms in timer.times.items():
-        print(json.dumps({"stage": name, "host_ms": ms}))
+        print(json.dumps({"stage": name, "device_ms": ms}))
     hist = pipe.histories
     print(json.dumps({
         "video": "FaceSwapVideoPipeline", "mode": args.mode, "frames": len(frames),
@@ -323,7 +323,7 @@ def main() -> None:
             timer = StageTimer()
             pipe(driven[0], target[0], timer=timer)
             for name, ms in timer.times.items():
-                stages.setdefault(name, {"host_ms": 0.0, "device_ms": None})["host_ms"] += ms
+                stages.setdefault(name, {"host_ms": None, "device_ms": 0.0})["device_ms"] += ms
             continue
         if enhance is not None:
             with torch.inference_mode():
@@ -334,9 +334,9 @@ def main() -> None:
         else:
             staged_swap(sw, d, target, stages)
     for name, rec in stages.items():
-        print(json.dumps({"stage": name, "host_ms": rec["host_ms"] / args.requests,
-                          "device_ms": None if rec["device_ms"] is None
-                          else rec["device_ms"] / args.requests}))
+        print(json.dumps({"stage": name, **{
+            k: None if rec[k] is None else rec[k] / args.requests
+            for k in ("host_ms", "device_ms")}}))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
