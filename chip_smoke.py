@@ -233,12 +233,16 @@ BACKWARD = ("fused_leaky_relu_backward", "upfirdn2d_backward", "regional_scale_b
 # 15 styled convs, K2 after the 7 up-convs and on the 7 ToRGB skips;
 # GCFSR-256: K1 after 8 activated ConvLayers, the latent head and 9 styled
 # convs, K2 before the 6 downsampling ConvLayers, after the 4 up-convs and on
-# the 4 ToRGB skips; the core swap as PER_CALL["exact"]; Blender and RRDB
-# run none; a swap_batch call launches as many as one call), the timed
-# requests, the B of swap_batch against single calls, larger Bs for the
-# memory line, the classical ct_modes it runs
+# the 4 ToRGB skips; the core swap as PER_CALL["exact"]; Blender runs none;
+# RRDB x4 K7 in each of its 23 x 3 dense blocks' 5 convs, conv_body,
+# conv_up1, conv_up2 and conv_hr; a swap_batch call launches as many as one
+# call; a classical ct_mode runs no RRDB), the timed requests, the B of
+# swap_batch against single calls, larger Bs for the memory line, the
+# classical ct_modes it runs
+RDB_PER_UPSCALE = 23 * 3 * 5 + 4
 ZOO_PER_CALL = {"fused_leaky_relu": 17 + 32 + 18, "upfirdn2d": 16 + 21 + 14,
-                "regional_scale": 6}
+                "regional_scale": 6, "rdb_conv": RDB_PER_UPSCALE}
+ZOO_CT_PER_CALL = dict(ZOO_PER_CALL, rdb_conv=0)
 ZOO_REQUESTS, ZOO_BATCH, ZOO_BATCH_MEMORY = 3, 4, (8, 16, 24)
 ZOO_CT_MODES = ("rct", "lct", "mkl", "sot")
 OPTIMIZE_W_STEPS = 2
@@ -314,8 +318,10 @@ GROUP_TUNE_STEPS, GROUP_TUNE_REL, GROUP_PHASE_S = 2, 1e-3, 60.0
 # start-up and kernel loading included, before they are stopped
 GRID, GRID_TIMEOUT_S = (1, 2), 300.0
 
-# kernels whose bfloat16 instances must hold tensor-core instructions
+# kernels whose bfloat16 instances must hold tensor-core instructions, and
+# those whose every instance must (K7 has float32 instances only)
 TENSOR_CORE_KERNELS = ("swin_block_kernel", "window_attention_kernel")
+TENSOR_CORE_F32_KERNELS = ("rdb_conv_kernel",)
 
 # the backward and double-backward kernels replace no TPU kernel (the JAX
 # package differentiates XLA ops); `replaces` names the TPU kernel whose
@@ -343,6 +349,8 @@ KERNEL_INFO = {
                          "e4s2024_tpu/ops/swin_block.py:126"),
     "fused_window_attention": ("e4s2024_torch/kernels/csrc/window_attention.cu",
                                "e4s2024_tpu/ops/window_attention.py:55"),
+    "rdb_conv": ("e4s2024_torch/kernels/csrc/rdb_conv.cu",
+                 "none (XLA convolutions, e4s2024_tpu/models/rrdb.py)"),
 }
 
 
@@ -436,6 +444,11 @@ def _tensor_core_counts(build):
         if not bf16 or min(bf16.values()) == 0:
             raise AssertionError(f"{kernel}: bfloat16 instances without tensor-core "
                                  f"instructions: {bf16}")
+    for kernel in TENSOR_CORE_F32_KERNELS:
+        every = {fn: c for fn, c in counts.items() if kernel in fn}
+        if not every or min(every.values()) == 0:
+            raise AssertionError(f"{kernel}: instances without tensor-core instructions: "
+                                 f"{every}")
 
 
 def _case_record(torch, name, label, kernel_fn, plain_fn, ref_fn, library_fn,
@@ -590,6 +603,7 @@ def phase_kernels(torch):
     records += _double_backward_records(torch, randn)
     _r1_check(torch)
     records += _swin_kernel_records(torch, randn)
+    records += _rdb_kernel_records(torch, randn)
     failed = [r for r in records if not r["ok"]]
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
@@ -1046,6 +1060,133 @@ def _swin_kernel_records(torch, randn):
         (4 * q.numel()) * 4 + bias.numel() * 4 + lab2.numel() * 4,
         4 * n * c * 2 * tokens, 1e-5, 1e-6, ops_rate=TF32X3_OPS_PER_S, iters=10))
     del q, k, v
+    torch.cuda.empty_cache()
+    return records
+
+
+def _rdb_kernel_records(torch, randn):
+    """K7 at RRDBNet's shapes in the zoo (B=8 Blender outputs of 256^2): one
+    case per shape class, conv1 (64 -> 32) and conv4 (160 -> 32) into the
+    dense buffer with bias + LeakyReLU, conv5 (192 -> 64) with the block's
+    residual, one whole residual dense block (5 launches) and conv_up2
+    (64 -> 64, 512^2 -> 1024^2 through the x2 fold). Each is held against a
+    float64 `F.conv2d` of the same float32 inputs: within 1e-5 of the
+    largest output, and within twice cuDNN float32's own error there
+    (`library_max_abs_err`; the library call is cuDNN float32 after a
+    `torch.cat` of the block's pieces, as the plain module runs it). The
+    bound is the 3xTF32 rate; `plain_ms` is `rdb_conv_plain` (cuDNN on NHWC
+    slices)."""
+    import torch.nn.functional as F
+
+    from e4s2024_torch import kernels
+    from e4s2024_torch.models.rrdb import RRDBNet, dense_block
+    from e4s2024_torch.ops import rdb_conv as rc
+    from e4s2024_torch.ops.resize import resize_nearest
+
+    b, size, nf, ng = 8, 256, 64, 32
+    width = nf + 4 * ng
+    pixels = b * size * size
+    buf = randn(b, size, size, width)
+    nxt = torch.empty_like(buf)
+    records = []
+
+    def pieces(cin):
+        """buf's channels [0, cin) as the plain module holds them: x and
+        each conv's growth, NCHW."""
+        cuts = [(0, nf)] + [(c, c + ng) for c in range(nf, cin, ng)]
+        return [buf[..., a:z].permute(0, 3, 1, 2).contiguous() for a, z in cuts]
+
+    def weights(cin, n):
+        return (randn(n, cin, 3, 3) * (9 * cin) ** -0.5).contiguous(), 0.1 * randn(n)
+
+    def f64_conv(xin, w, bias):
+        return F.conv2d(xin.double(), w.double(), bias.double(), padding=1)
+
+    def check(rec):
+        lib = rec["library_max_abs_err"]
+        rec["within_2x_library"] = rec["max_abs_err"] <= 2 * lib
+        rec["ok"] = rec["ok"] and rec["within_2x_library"]
+        log(f"[kernels] K7 {rec['case']}: max |err| {rec['max_abs_err']:.3e} against float64, "
+            f"cuDNN float32 {lib:.3e}; {rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f}")
+        return rec
+
+    for cin in (64, 160):
+        w, bias = weights(cin, ng)
+        packed = rc.pack_weights(w)
+        parts = pieces(cin)
+        whole = torch.cat(parts, 1)
+        records.append(check(_case_record(
+            torch, "rdb_conv", f"conv{1 + (cin - nf) // ng} {cin} -> {ng}, B={b} at {size}^2",
+            lambda: rc.rdb_conv(buf, w, bias, buf, cin, packed=packed,
+                                act=True)[..., cin:cin + ng],
+            lambda: rc.rdb_conv_plain(buf, w, bias, buf, cin, act=True)[..., cin:cin + ng],
+            lambda: F.leaky_relu(f64_conv(whole, w, bias), 0.2).permute(0, 2, 3, 1),
+            lambda: F.leaky_relu(F.conv2d(torch.cat(parts, 1), w, bias, padding=1), 0.2)
+            .permute(0, 2, 3, 1),
+            (cin + ng) * 4 * pixels, 2 * 9 * cin * ng * pixels, 1e-5, 0.0,
+            ops_rate=TF32X3_OPS_PER_S, iters=10, symbol="rdb_conv_kernel", library_err=True)))
+        del parts, whole
+
+    w, bias = weights(width, nf)
+    packed = rc.pack_weights(w)
+    parts = pieces(width)
+    whole = torch.cat(parts, 1)
+    records.append(check(_case_record(
+        torch, "rdb_conv", f"conv5 {width} -> {nf} + 0.2 residual, B={b} at {size}^2",
+        lambda: rc.rdb_conv(buf, w, bias, nxt, 0, packed=packed, res1=buf, s1=0.2)[..., :nf],
+        lambda: rc.rdb_conv_plain(buf, w, bias, nxt, 0, res1=buf, s1=0.2)[..., :nf],
+        lambda: (parts[0].double() + 0.2 * f64_conv(whole, w, bias)).permute(0, 2, 3, 1),
+        lambda: (parts[0] + 0.2 * F.conv2d(torch.cat(parts, 1), w, bias, padding=1))
+        .permute(0, 2, 3, 1),
+        (width + 3 * nf) * 4 * pixels, 2 * 9 * width * nf * pixels, 1e-5, 0.0,
+        ops_rate=TF32X3_OPS_PER_S, iters=10, symbol="rdb_conv_kernel", library_err=True)))
+    del parts, whole
+
+    # one whole block (buf's first 64 channels its input), the plain module
+    # on NCHW beside it
+    torch.manual_seed(SEED)
+    rdb = RRDBNet(nf, 1, ng).cuda().eval().requires_grad_(False).body[0].rdb1
+    rdb64 = RRDBNet(nf, 1, ng).cuda().double().eval().requires_grad_(False).body[0].rdb1
+    rdb64.load_state_dict(rdb.state_dict())
+    packs = {m: rc.pack_weights(m.weight) for m in rdb.modules()
+             if isinstance(m, torch.nn.Conv2d)}
+    x_nchw = buf[..., :nf].permute(0, 3, 1, 2).contiguous()
+
+    def block(plain: bool):
+        with kernels.plain_versions_on_card() if plain else contextlib.nullcontext():
+            dense_block(rdb, buf, nxt, packs)
+        return nxt[..., :nf]
+
+    reads = nf + 96 + 128 + 160 + width + nf   # conv1-5 and the residual
+    with torch.inference_mode():
+        records.append(check(_case_record(
+            torch, "rdb_conv", f"whole residual dense block (5 launches), B={b} at {size}^2",
+            lambda: block(False), lambda: block(True),
+            lambda: rdb64(x_nchw.double()).permute(0, 2, 3, 1),
+            lambda: rdb(x_nchw).permute(0, 2, 3, 1),
+            (reads + 4 * ng + nf) * 4 * pixels,
+            2 * 9 * (ng * (nf + 96 + 128 + 160) + nf * width) * pixels, 1e-5, 0.0,
+            ops_rate=TF32X3_OPS_PER_S, iters=10, library_err=True)))
+    del buf, nxt, x_nchw, rdb, rdb64
+    torch.cuda.empty_cache()
+
+    # the tail's conv_up2: 512^2 -> 1024^2 through the x2 fold
+    up = randn(b, 512, 512, nf)
+    out = torch.empty(b, 1024, 1024, nf, device="cuda")
+    up_nchw = up.permute(0, 3, 1, 2)
+    up_big = up_nchw.repeat_interleave(2, 2).repeat_interleave(2, 3)
+    w, bias = weights(nf, nf)
+    packed = rc.pack_weights(w)
+    records.append(check(_case_record(
+        torch, "rdb_conv", f"conv_up2 {nf} -> {nf} with the x2 fold, B={b} 512^2 -> 1024^2",
+        lambda: rc.rdb_conv(up, w, bias, out, 0, packed=packed, fold=2, act=True),
+        lambda: rc.rdb_conv_plain(up, w, bias, out, 0, fold=2, act=True),
+        lambda: F.leaky_relu(f64_conv(up_big, w, bias), 0.2).permute(0, 2, 3, 1),
+        lambda: F.leaky_relu(F.conv2d(resize_nearest(up_nchw, (1024, 1024)), w, bias,
+                                      padding=1), 0.2).permute(0, 2, 3, 1),
+        (up.numel() + out.numel()) * 4, 2 * 9 * nf * out.numel(), 1e-5, 0.0,
+        ops_rate=TF32X3_OPS_PER_S, iters=5, symbol="rdb_conv_kernel", library_err=True)))
+    del up, out, up_nchw, up_big
     torch.cuda.empty_cache()
     return records
 
@@ -1807,7 +1948,8 @@ def phase_zoo(torch, rgi_sd, bise_sd):
         cout, cms, claunch, _ = _zoo_call(torch, kernels, lambda: ct(src, tgt)["image"])
         crec = {"ct_mode": mode, "ms": cms[0], "launches": {k: v for k, v in claunch.items() if v},
                 "vs_blender_mean_abs": float((cout.int() - image.int()).abs().float().mean())}
-        if cout.shape != (1024, 1024, 3) or {k: claunch[k] for k in ZOO_PER_CALL} != ZOO_PER_CALL:
+        if cout.shape != (1024, 1024, 3) \
+                or {k: claunch[k] for k in ZOO_CT_PER_CALL} != ZOO_CT_PER_CALL:
             problems.append(f"ct_mode {mode}: {crec}")
         log(f"[zoo] ct_mode {json.dumps(crec)}")
     problems += _zoo_extras(torch, kernels, swapper, src, tgt)
@@ -2938,8 +3080,11 @@ def phase_grid(torch, train, card: str):
         problems += [f"rank {r['rank']} vs phase 9's plain versions: {p}" for p in pprobs]
         if [c["kind"] for c in r["step_ms"]] != ["d_r1", "g", "d", "g", "d_r1", "g"]:
             problems.append(f"rank {r['rank']} step kinds {r['step_ms']}")
-        # the split runs phase 9's kernels on windows: each launch once, as there
-        if any(r["launches"][k] == 0 for k in needed) or r["launches"] != train["launches"]:
+        # the split runs phase 9's kernels on windows: each launch once, as
+        # there (a kernel whose module the rank never imported launched none)
+        names = set(r["launches"]) | set(train["launches"])
+        if any(r["launches"][k] == 0 for k in needed) or any(
+                r["launches"].get(k, 0) != train["launches"].get(k, 0) for k in names):
             problems.append(f"rank {r['rank']} launches {r['launches']}, phase 9's "
                             f"{train['launches']}")
         rec["ranks"].append({
@@ -3021,6 +3166,8 @@ def main() -> int:
     launches.update({name: train["launches"][name] + group["launches"].get(name, 0)
                      + grid["launches"].get(name, 0)
                      for name in DOUBLE_BACKWARD})
+    launches["rdb_conv"] = (zoo["launches"]["rdb_conv"] + reenact["launches"]["rdb_conv"]
+                            + group["launches"].get("rdb_conv", 0))
     launches["fused_swin_block"] = (enhance["launches"]["fused_swin_block"]
                                     + raw["swap_raw exact"]["launches"]["fused_swin_block"])
     for route in ("nhwc", "windowed"):

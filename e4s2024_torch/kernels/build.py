@@ -50,6 +50,10 @@ SIGNATURES = {
     # x, slabs, vec, bias, labels, out, dtype, batch, height, width, channels,
     # heads, hidden, window, shift, scale, eps, device, stream
     "e4s_swin_block": (_P,) * 6 + (_I,) * 9 + (_F, _F, _I, _P),
+    # x, packed, bias, out, res1, res2, batch, in_h, in_w, in_stride, cin, n,
+    # fold, out_stride, out_off, act, res1_stride, s1, res2_stride, s2,
+    # device, stream
+    "e4s_rdb_conv": (_P,) * 6 + (_I,) * 11 + (_F, _I, _F, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -262,7 +262,8 @@ class FullFaceSwapPipeline:
                 return swapped255
             rec = self.comp.recolorer.recolor(swapped255, target255, d_label19, t_label19)
             if self.comp.upscaler is not None and rec.shape[1] * 4 <= swapped255.shape[1]:
-                rec = self.comp.upscaler.upscale(rec)
+                with span("upscale", rec.device):
+                    rec = self.comp.upscaler.upscale(rec)
             return self._recolor_composite(rec, swapped255)
         out = []
         for s, t in zip(swapped255, target255):

@@ -15,7 +15,8 @@ import torch
 
 from e4s2024_torch import kernels, resolve_device
 from e4s2024_torch.kernels import build
-from e4s2024_torch.ops import fused_act, modulate, swin_block, upfirdn, window_attention
+from e4s2024_torch.ops import (fused_act, modulate, rdb_conv, swin_block, upfirdn,
+                               window_attention)
 
 
 @pytest.fixture
@@ -65,7 +66,7 @@ def test_wrappers_registered_with_counters():
                                      "fused_window_attention", "fused_leaky_relu_backward",
                                      "upfirdn2d_backward", "regional_scale_backward",
                                      "fused_leaky_relu_double_backward",
-                                     "upfirdn2d_double_backward"}
+                                     "upfirdn2d_double_backward", "rdb_conv"}
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == dict.fromkeys(kernels.WRAPPERS, 0)
 
@@ -782,3 +783,66 @@ def test_regional_scale_second_derivative_raises(cuda):
                                 create_graph=True)
     with pytest.raises(RuntimeError, match="once_differentiable"):
         gx.sum().backward()
+
+
+# K7 cases: (batch, in_h, in_w, buffer width, cin, n, out_off, fold, epilogue)
+RDB_CASES = {
+    "conv1 into the buffer, ragged tiles": (2, 21, 35, 192, 64, 32, 64, 1, "act"),
+    "conv4 into the buffer": (1, 16, 16, 192, 160, 32, 160, 1, "act"),
+    "conv5 with the block's residual": (2, 19, 17, 192, 192, 64, 0, 1, "res1"),
+    "conv5 with the RRDB's residual in place": (1, 18, 33, 192, 192, 64, 0, 1, "res2"),
+    "conv_body with + feat": (1, 16, 40, 64, 64, 64, 0, 1, "body"),
+    "conv_up with the x2 fold": (2, 9, 13, 64, 64, 64, 0, 2, "act"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RDB_CASES))
+def test_rdb_conv_kernel(cuda, case):
+    """K7 against its plain version on the card (float32 convolutions in
+    full float32): every epilogue, the x2 fold, tiles cut by the image's
+    edge; the channels outside the written slice stay as they were. 3xTF32
+    leaves about 2^-20 of sum |x||w| per product: within 1e-5 of the
+    largest output."""
+    b, h, w, width, cin, n, off, fold, mode = RDB_CASES[case]
+    x = _randn(b, h, w, width, device=cuda)
+    weight = _randn(n, cin, 3, 3, device=cuda, seed=1) * (9 * cin) ** -0.5
+    bias = _randn(n, device=cuda, seed=2) * 0.1
+    big = (b, fold * h, fold * w)
+    out = x if off else _randn(*big, width, device=cuda, seed=3)
+    kw = {"fold": fold, "act": mode == "act"}
+    if mode in ("res1", "res2"):
+        kw.update(res1=x, s1=0.2)
+    if mode == "res2":
+        kw.update(res2=out, s2=0.2)
+    if mode == "body":
+        kw.update(res1=_randn(*big, 64, device=cuda, seed=4))
+    want = rdb_conv.rdb_conv_plain(x.clone(), weight, bias, out.clone(), off,
+                                   **{k: v.clone() if torch.is_tensor(v) else v
+                                      for k, v in kw.items()})
+    before = out.clone()
+    got = rdb_conv.rdb_conv(x, weight, bias, out, off, packed=rdb_conv.pack_weights(weight),
+                            **kw)
+    torch.cuda.synchronize()
+    assert rdb_conv.rdb_conv.launches == 1
+    keep = torch.ones(width, dtype=torch.bool)
+    keep[off:off + n] = False
+    assert torch.equal(got[..., keep], before[..., keep])
+    torch.testing.assert_close(got[..., off:off + n], want[..., off:off + n], rtol=1e-5,
+                               atol=1e-5 * float(want[..., off:off + n].abs().max()))
+
+
+@pytest.mark.cuda
+def test_rrdbnet_through_k7(cuda):
+    """A two-RRDB net at the published widths on a 20 x 24 crop: the dense
+    path (5 launches a block, 4 in the tail) against the plain modules."""
+    from e4s2024_torch.models.rrdb import RRDBNet
+
+    torch.manual_seed(0)
+    net = RRDBNet(64, 2, 32).to(cuda).eval().requires_grad_(False)
+    x = torch.rand(2, 20, 24, 3, device=cuda)
+    with torch.inference_mode():
+        got = net.forward_nhwc(x)
+        want = net(x.permute(0, 3, 1, 2).contiguous()).permute(0, 2, 3, 1)
+    assert rdb_conv.rdb_conv.launches == 2 * 3 * 5 + 4
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
