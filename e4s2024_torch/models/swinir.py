@@ -28,9 +28,15 @@ Three routes run the attention, each through a kernel on the card:
   batch, the attention through K6, `ops/window_attention.fused_window_attention`.
 
 Parameters stay float32; `dtype` is the compute type, as in the JAX module.
-Labels, each block's (heads, n, n) bias gather and the fused route's weight
-dicts are made once and cached on the module's device (`clear_cache` after
-changing weights in place; `load_state_dict` and `.to` clear it).
+Labels, the RGB mean, each block's (heads, n, n) bias gather and the fused
+route's weight dicts are made once and cached on the module's device
+(`clear_cache` after changing weights in place; `load_state_dict` and `.to`
+clear it).
+
+Spans (`utils.observability.span`), in both the fused route and the module
+forward: `swin_body` around the RSTBs and `swin_tail` around `norm`
+through `conv_last`; under the pipeline's `enhance` stage, not stages
+themselves.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from e4s2024_torch.ops.swin_block import (
 from e4s2024_torch.ops.window_attention import (  # noqa: F401
     fused_window_attention, merge_windows, partition_qkv, swin_attention_nhwc, tile_labels,
     window_partition, window_reverse)
+from e4s2024_torch.utils.observability import span
 
 RGB_MEAN = (0.4488, 0.4371, 0.4040)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -253,6 +260,11 @@ class SwinIR(nn.Module):
 
         return self._cached(("labels", h, w, str(device)), make)
 
+    def _rgb_mean(self, device) -> torch.Tensor:
+        """(3,) float32 RGB mean on `device`."""
+        return self._cached(("mean", str(device)),
+                            lambda: torch.tensor(RGB_MEAN, device=device))
+
     def _biases(self) -> list[list[torch.Tensor]]:
         dev = self.conv_first.weight.device
         return self._cached(("bias", str(dev)), lambda: [
@@ -279,36 +291,37 @@ class SwinIR(nn.Module):
     # ---------------- forward ----------------
 
     def _head(self, x: torch.Tensor):
-        mean = torch.tensor(RGB_MEAN, device=x.device)
-        x = (x.float() - mean).to(self.dtype)
+        x = (x.float() - self._rgb_mean(x.device)).to(self.dtype)
         feat = _conv(self.conv_first, _nchw(x))                       # (B, C, H, W)
         body = _layer_norm(self.patch_embed.norm, _nhwc(feat))        # (B, H, W, C)
         return feat, body
 
     def _tail(self, feat: torch.Tensor, body: torch.Tensor) -> torch.Tensor:
-        body = _layer_norm(self.norm, body)
-        feat = feat + _conv(self.conv_after_body, _nchw(body))
-        # conv_before_upsample's LeakyReLU has torch's default slope 0.01,
-        # the up convs' 0.2
-        feat = F.leaky_relu(_conv(self.conv_before_upsample[0], feat), 0.01)
-        h, w = feat.shape[-2:]
-        feat = F.leaky_relu(_conv(self.conv_up1, resize_nearest(feat, (2 * h, 2 * w))), 0.2)
-        feat = F.leaky_relu(_conv(self.conv_up2, resize_nearest(feat, (4 * h, 4 * w))), 0.2)
-        feat = F.leaky_relu(_conv(self.conv_hr, feat), 0.2)
-        out = _conv(self.conv_last, feat).float()
-        out = out + torch.tensor(RGB_MEAN, device=out.device).view(1, 3, 1, 1)
-        return _nhwc(out)
+        with span("swin_tail", body.device):
+            body = _layer_norm(self.norm, body)
+            feat = feat + _conv(self.conv_after_body, _nchw(body))
+            # conv_before_upsample's LeakyReLU has torch's default slope 0.01,
+            # the up convs' 0.2
+            feat = F.leaky_relu(_conv(self.conv_before_upsample[0], feat), 0.01)
+            h, w = feat.shape[-2:]
+            feat = F.leaky_relu(_conv(self.conv_up1, resize_nearest(feat, (2 * h, 2 * w))), 0.2)
+            feat = F.leaky_relu(_conv(self.conv_up2, resize_nearest(feat, (4 * h, 4 * w))), 0.2)
+            feat = F.leaky_relu(_conv(self.conv_hr, feat), 0.2)
+            out = _conv(self.conv_last, feat).float()
+            out = out + self._rgb_mean(out.device).view(1, 3, 1, 1)
+            return _nhwc(out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Module forward: the attention through K4 (`use_kernel`) or K6."""
         feat, body = self._head(x)
         h, w = body.shape[1:3]
-        for layer, layer_bias in zip(self.layers, self._biases()):
-            res = body
-            for blk, bias in zip(layer.residual_group.blocks, layer_bias):
-                labels = self._labels(h, w, body.device) if blk.shift else None
-                body = blk(body, bias, labels, self.use_kernel)
-            body = _nhwc(_conv(layer.conv, _nchw(body))) + res
+        with span("swin_body", body.device):
+            for layer, layer_bias in zip(self.layers, self._biases()):
+                res = body
+                for blk, bias in zip(layer.residual_group.blocks, layer_bias):
+                    labels = self._labels(h, w, body.device) if blk.shift else None
+                    body = blk(body, bias, labels, self.use_kernel)
+                body = _nhwc(_conv(layer.conv, _nchw(body))) + res
         return self._tail(feat, body)
 
 
@@ -318,13 +331,14 @@ def apply_fused(model: SwinIR, x: torch.Tensor) -> torch.Tensor:
     the kernel, which rolls in its addressing: no rolled copy is made."""
     feat, body = model._head(x)
     h, w = body.shape[1:3]
-    for layer, layer_wts in zip(model.layers, model.fused_weights(model.dtype)):
-        res = body
-        for blk, wts in zip(layer.residual_group.blocks, layer_wts):
-            labels = model._labels(h, w, body.device) if blk.shift else None
-            body = fused_swin_block(body, wts, labels, window=model.window, heads=blk.heads,
-                                    shift=blk.shift)
-        body = _nhwc(_conv(layer.conv, _nchw(body))) + res
+    with span("swin_body", body.device):
+        for layer, layer_wts in zip(model.layers, model.fused_weights(model.dtype)):
+            res = body
+            for blk, wts in zip(layer.residual_group.blocks, layer_wts):
+                labels = model._labels(h, w, body.device) if blk.shift else None
+                body = fused_swin_block(body, wts, labels, window=model.window, heads=blk.heads,
+                                        shift=blk.shift)
+            body = _nhwc(_conv(layer.conv, _nchw(body))) + res
     return model._tail(feat, body)
 
 
